@@ -1,0 +1,166 @@
+"""Wavefront traversal of the implicit suffix tree (counterpart of
+``ebwt2indel_tpu/models/traverse.py::navigate_one_bwt``; reference
+ebwt2InDel.cpp:555-676).
+
+Every write of the traversal (LCP-threshold bits, LCP-minima bits) targets a
+position fixed by the visited node alone, independent of visit order
+(traverse.py:6-12 of the JAX package). So a host loop over chunks of a FIFO
+of device tensors is exact: it pops up to ``CHUNK`` rows, runs one batched
+step on them, and queues the surviving children.
+
+* Leaf step (``_leaf_body``): ±1 boundary deltas at first+1 and second, in
+  separate int32 K and R delta vectors (the exact int32-per-field layout of
+  ``_leaf_body_wide``), then the left extensions of size >= 2.
+* Node step (``_node_body``): border flags (1 = thr_K, 2 = thr_R) and minima
+  marks (4) added into a per-position uint8 flag vector, then the Weiner
+  extension by the 4 nucleotides, keeping children with >= 2 children.
+* After both phases: a prefix sum of the deltas gives the leaf-interior
+  fills, and thr_K = flag bit 1 | fill_K, thr_R = bit 2 | fill_R.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+
+import torch
+
+from ..device import synchronize
+from . import fm_index as fm_ops
+from .fm_index import FMIndex
+
+CHUNK = 256 * 1024  # rows popped per step (traverse.py:39)
+
+
+@dataclasses.dataclass
+class TraversalResult:
+    """Flag vectors + diagnostics (the reference's globals LCP_threshold /
+    LCP_minima, ebwt2InDel.cpp:56-58)."""
+
+    thr_K: torch.Tensor  # (n,) uint8 — LCP_threshold[2i]   (LCP[i] >= K)
+    thr_R: torch.Tensor  # (n,) uint8 — LCP_threshold[2i+1] (LCP[i] >= k_right)
+    minima: torch.Tensor  # (n,) uint8
+    stats: dict
+
+
+def _char_major(children: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Kept rows of (C, 4, w) children in char-major order: children that
+    extend by the same character live in the same F-region, so neighbouring
+    queue rows read nearby block rows (the order is otherwise free)."""
+    return children.transpose(0, 1)[keep.transpose(0, 1)]
+
+
+def _leaf_body(fm: FMIndex, chunk, difs, stats, K: int, k_right: int):
+    """Suffix-tree leaf step (reference update_LCP_leaf,
+    ebwt2InDel.cpp:344-355; next_leaves, dna_bwt.hpp:358-379).
+    chunk: (C, 3) [first, second, depth]."""
+    first, second, depth = chunk.unbind(1)
+    for dif, bound in zip(difs, (K, k_right)):
+        on = depth >= bound
+        idx = torch.cat([first[on] + 1, second[on]])
+        val = torch.ones_like(idx, dtype=torch.int32)
+        val[idx.shape[0] // 2:] = -1
+        dif.index_add_(0, idx, val)
+    stats[0] += chunk.shape[0]
+    stats[1] += (second - first - 1).sum()
+
+    lo4, hi4 = fm_ops.lf_range(fm, first, second)  # (C, 4)
+    children = torch.stack(
+        [lo4, hi4, (depth + 1)[:, None].expand_as(lo4)], dim=-1)
+    return _char_major(children, (hi4 - lo4) >= 2)
+
+
+def _node_body(fm: FMIndex, chunk, flags, stats, K: int, k_right: int):
+    """Internal-node step: border LCP writes, minima marks, Weiner-link
+    extension (update_lcp_threshold include.hpp:826-860; update_lcp_minima
+    ebwt2InDel.cpp:357-391; next_nodes dna_bwt.hpp:381-404).
+    chunk: (C, 7)."""
+    depth = chunk[:, 6:7]
+    last = chunk[:, 5:6]
+    border = chunk[:, 1:5]  # borders j = 1..4
+    prev = chunk[:, 0:4]  # their left neighbours j-1
+    cond = (border > prev) & (border != last)
+    v = (cond & (depth >= K)).to(torch.uint8) \
+        + (cond & (depth >= k_right)).to(torch.uint8) * 2
+    # minima at borders j >= 2 (the first column is border j = 1)
+    cond_m = ((border - prev) >= 2) & (border < last - 1)
+    cond_m[:, 0] = False
+    v += cond_m.to(torch.uint8) * 4
+    # each flagged position is written by exactly one (node, border) over the
+    # whole traversal, so the add never collides (traverse.py:432-436)
+    on = v > 0
+    flags.index_add_(0, border[on], v[on])
+    stats[0] += chunk.shape[0]
+    stats[1] += cond.sum()
+    stats[2] += cond_m.sum()
+
+    ext = fm_ops.extend_node(fm, chunk)  # (C, 4, 7)
+    return _char_major(ext, fm_ops.node_num_children(ext) >= 2)
+
+
+def _run_phase(init: torch.Tensor, step) -> int:
+    """Drain a FIFO of device row tensors in chunks of up to CHUNK rows;
+    ``step(chunk)`` returns the children to queue. Returns the largest
+    pending count seen (it depends on visit order; diagnostic only)."""
+    pending = collections.deque([init])
+    n_pending = max_pending = init.shape[0]
+    while pending:
+        parts, need = [], CHUNK
+        while pending and need:
+            head = pending[0]
+            if head.shape[0] <= need:
+                parts.append(pending.popleft())
+                need -= head.shape[0]
+            else:
+                parts.append(head[:need])
+                pending[0] = head[need:]
+                need = 0
+        chunk = parts[0] if len(parts) == 1 else torch.cat(parts)
+        n_pending -= chunk.shape[0]
+        children = step(chunk)
+        if children.shape[0]:
+            pending.append(children)
+            n_pending += children.shape[0]
+        max_pending = max(max_pending, n_pending)
+    return max_pending
+
+
+def navigate_one_bwt(fm: FMIndex, K: int, k_right: int) -> TraversalResult:
+    """Single-BWT navigation (reference navigate_one_bwt,
+    ebwt2InDel.cpp:555-676): the leaf phase, then the node phase.
+    ``stats`` carries the counts of the JAX package plus the seconds of each
+    phase (``leaf_seconds``, ``node_seconds``)."""
+    n, dev = fm.n, fm.device
+    t0 = time.perf_counter()
+    difs = (torch.zeros(n + 1, dtype=torch.int32, device=dev),
+            torch.zeros(n + 1, dtype=torch.int32, device=dev))
+    st_l = torch.zeros(2, dtype=torch.int64, device=dev)  # leaves, lcp
+    maxp_l = _run_phase(
+        fm.first_leaf()[None, :],
+        lambda c: _leaf_body(fm, c, difs, st_l, K, k_right))
+    fill_K, fill_R = (torch.cumsum(d[:n], 0, dtype=torch.int32) > 0
+                      for d in difs)
+    del difs
+    synchronize(dev)
+    t1 = time.perf_counter()
+
+    flags = torch.zeros(n, dtype=torch.uint8, device=dev)
+    st_n = torch.zeros(3, dtype=torch.int64, device=dev)  # nodes, lcp, n_min
+    maxp_n = _run_phase(
+        fm.root()[None, :],
+        lambda c: _node_body(fm, c, flags, st_n, K, k_right))
+    thr_K = ((flags & 1).bool() | fill_K).to(torch.uint8)
+    thr_R = ((flags & 2).bool() | fill_R).to(torch.uint8)
+    minima = (flags >> 2) & 1
+    synchronize(dev)
+    t2 = time.perf_counter()
+
+    l, n_ = st_l.tolist(), st_n.tolist()
+    stats = {
+        "leaves": l[0], "nodes": n_[0], "lcp_values": 1 + l[1] + n_[1],
+        "n_min": n_[2], "max_pending": max(maxp_l, maxp_n),
+        "leaf_seconds": t1 - t0, "node_seconds": t2 - t1,
+    }
+    return TraversalResult(thr_K=thr_K, thr_R=thr_R, minima=minima,
+                           stats=stats)

@@ -1,0 +1,61 @@
+"""Tests of the port that need an NVIDIA GPU: the CUDA rank kernel against
+its plain PyTorch version, and mode 1 on the card against mode 1 on the CPU.
+A CUDA kernel has no CPU mode, so without a card these skip. On the card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+
+The file imports nothing from ``tests``, so it also collects where another
+package of that name is installed."""
+
+import numpy as np
+import pytest
+import torch
+
+from ebwt2indel_torch.models import pipeline
+from ebwt2indel_torch.ops import packing, rank, rank_cuda
+from ebwt2indel_torch.tools import ebwt, simulate
+from ebwt2indel_torch.utils.config import Config
+
+pytestmark = pytest.mark.cuda
+
+
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the rank kernel runs only on the "
+                    "card")
+
+
+def test_rank_kernel_matches_plain_on_card(rng):
+    """Exact equality with the plain version, edge positions included, and
+    one launch counted per call."""
+    _needs_cuda()
+    n = 200_003
+    codes = rng.integers(0, 4, size=n).astype(np.uint8)
+    codes[rng.random(n) < 0.03] = 4
+    blocks = torch.from_numpy(packing.pack_codes(codes).blocks.view(np.int32))
+    qs = torch.from_numpy(np.concatenate(
+        [rng.integers(0, n + 1, size=100_000), [0, 127, 128, n - 1, n]]))
+    before = rank_cuda.LAUNCHES["rank_decode"]
+    got = rank.parallel_rank(blocks.cuda(), qs.cuda())
+    torch.cuda.synchronize()
+    assert rank_cuda.LAUNCHES["rank_decode"] == before + 1
+    assert torch.equal(got.cpu(), rank.parallel_rank_plain(blocks, qs))
+
+
+def test_mode1_cuda_matches_cpu(tmp_path, rng):
+    """The .snp of mode 1 on the card is byte-identical to the CPU's."""
+    _needs_cuda()
+    genome = simulate.random_genome(rng, 20_000)
+    hap2, _ = simulate.plant_variants(rng, genome, snp_rate=0.004,
+                                      indel_rate=0.001)
+    reads = simulate.sample_reads(rng, genome, 8, 100) + \
+        simulate.sample_reads(rng, hap2, 8, 100)
+    path = tmp_path / "r.ebwt"
+    path.write_text(ebwt.ebwt_of_reads(reads))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"{dev}.snp"
+        pipeline.run_one_dataset(Config(input1=str(path), output=str(out)),
+                                 log=lambda *a, **k: None, device=dev)
+        outs[dev] = out.read_bytes()
+    assert outs["cuda"] == outs["cpu"] and outs["cpu"]

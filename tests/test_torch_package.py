@@ -1,0 +1,72 @@
+"""Guards of the PyTorch/CUDA port: it imports neither JAX nor the JAX
+package, and its entry points refuse to run without a GPU unless the CPU is
+asked for."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from ebwt2indel_torch import cli, device
+from ebwt2indel_torch.models import fm_index, pipeline
+from ebwt2indel_torch.utils.config import Config
+
+REPO = os.path.join(os.path.dirname(__file__), "..")
+_FORBIDDEN = ("jax", "jaxlib", "ebwt2indel_tpu")
+
+
+def _port_files():
+    pkg = os.path.join(REPO, "ebwt2indel_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(pkg):
+        files += [os.path.join(root, f) for f in names if f.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert len(files) > 15
+    for path in files:
+        for mod in _imported_modules(path):
+            assert mod.split(".")[0] not in _FORBIDDEN, (path, mod)
+
+
+def _needs_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal path cannot run")
+
+
+def test_default_device_raises_without_cuda():
+    _needs_no_cuda()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device.resolve()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fm_index.FMIndex.from_numpy(
+            np.zeros((1, 16), np.uint32),
+            [[0, 0, 0, 0]], [0, 0, 0, 0], 0, ord("#"))
+    assert device.resolve("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        device.resolve("meta")
+
+
+def test_cli_and_pipeline_default_to_cuda(tmp_path):
+    _needs_no_cuda()
+    path = tmp_path / "r.ebwt"
+    path.write_text("AC#G")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.run_one_dataset(
+            Config(input1=str(path), output=str(tmp_path / "o.snp")),
+            log=lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["-1", str(path), "-o", str(tmp_path / "o.snp")])
