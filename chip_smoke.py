@@ -21,7 +21,17 @@ Phases, each of which must pass (the script exits 1 otherwise):
    the first node chunk (256k nodes x 6 boundaries) of the full-size index;
 7. five more full-size CUDA runs for the spread of the wall and phase times
    (median, min, max), then one under ``torch.profiler``: device time by
-   kernel name and the device's busy share of the run.
+   kernel name and the device's busy share of the run;
+8. modes 3 and 2 on CUDA against the CPU on the pair data of phase 3's
+   recipe (the two haplotypes' reads as two collections): byte-identical
+   .snp and equal stats;
+9. the bench's pair datasets (bench.py:94-121) built into ``data/`` from the
+   same reads as phase 4: ``a.ebwt`` and ``b.ebwt`` (~58M positions each)
+   and the merged ``.ebwt`` and ``.da`` (~116M positions);
+10. modes 3 (``-1 merged.ebwt -d merged.da``) and 2 (``-1 a.ebwt -2
+    b.ebwt``) at full size through ``cli.main`` on CUDA, each with the
+    kernel's launch count reset just before and read just after; then three
+    more runs of each for the spread, and one of each under the profiler.
 
 It prints the per-kernel JSON line, then the card line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -32,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -80,25 +91,64 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+@functools.lru_cache(maxsize=2)
+def make_reads(genome_len: int, seed: int, coverage: float, read_len: int):
+    """The bench's recipe (bench.py:65-75): reads of a genome and of a second
+    haplotype, each at half coverage."""
+    from ebwt2indel_torch.tools import simulate
+
+    rng = np.random.default_rng(seed)
+    genome = simulate.random_genome(rng, genome_len)
+    hap2, _ = simulate.plant_variants(rng, genome, snp_rate=0.001,
+                                      indel_rate=0.0002)
+    return (simulate.sample_reads(rng, genome, coverage / 2, read_len),
+            simulate.sample_reads(rng, hap2, coverage / 2, read_len))
+
+
+def _write(path: str, text: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path + ".tmp", "w") as f:
+        f.write(text)
+    os.replace(path + ".tmp", path)
+
+
 def make_dataset(path: str, genome_len: int, seed: int, coverage: float,
                  read_len: int = READ_LEN) -> int:
-    """The bench's recipe (bench.py:65-75): two haplotypes at half coverage
-    each; returns the number of BWT positions."""
-    from ebwt2indel_torch.tools import ebwt, simulate
+    """Mode 1's input: both read sets as one collection; returns the number
+    of BWT positions."""
+    from ebwt2indel_torch.tools import ebwt
 
     if not os.path.isfile(path):
-        rng = np.random.default_rng(seed)
-        genome = simulate.random_genome(rng, genome_len)
-        hap2, _ = simulate.plant_variants(rng, genome, snp_rate=0.001,
-                                          indel_rate=0.0002)
-        reads = simulate.sample_reads(rng, genome, coverage / 2, read_len) \
-            + simulate.sample_reads(rng, hap2, coverage / 2, read_len)
-        bwt = ebwt.ebwt_of_reads(reads)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path + ".tmp", "w") as f:
-            f.write(bwt)
-        os.replace(path + ".tmp", path)
+        reads1, reads2 = make_reads(genome_len, seed, coverage, read_len)
+        _write(path, ebwt.ebwt_of_reads(reads1 + reads2))
     return os.path.getsize(path)
+
+
+def make_pair_datasets(prefix: str, genome_len: int, seed: int,
+                       coverage: float) -> dict:
+    """The pair modes' inputs from the same reads (bench.py:94-121): an eBWT
+    of each read set (mode 2), and the merged eBWT with its document array
+    (mode 3). Logs each file's size and build seconds."""
+    from ebwt2indel_torch.tools import ebwt
+
+    paths = {k: f"{prefix}_{k}" for k in ("a.ebwt", "b.ebwt", "merged.ebwt",
+                                          "merged.da")}
+    if all(os.path.isfile(p) for p in paths.values()):
+        return paths
+    reads1, reads2 = make_reads(genome_len, seed, coverage, READ_LEN)
+    for key, reads in (("a.ebwt", reads1), ("b.ebwt", reads2)):
+        t0 = time.perf_counter()
+        _write(paths[key], ebwt.ebwt_of_reads(reads))
+        log(f"[data] {paths[key]}: {os.path.getsize(paths[key])} positions "
+            f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bwt, da = ebwt.ebwt_and_da_of_two(reads1, reads2)
+    _write(paths["merged.da"], da)
+    _write(paths["merged.ebwt"], bwt)
+    log(f"[data] {paths['merged.ebwt']} and .da: {len(bwt)} positions "
+        f"({da.count('1')} of collection 2) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return paths
 
 
 def phase_kernel_vs_plain() -> None:
@@ -245,6 +295,7 @@ def phase_full(results: dict, data_dir: str, log_dir: str) -> None:
         raise AssertionError("rank_decode never launched on the main path")
     results["launches"] = launches
     results["full_path"] = path
+    results["n"] = n
     results["full_out"] = out
     results["full_wall"] = wall
     results["full_stats"] = dict(
@@ -267,32 +318,36 @@ def phase_full_cpu(results: dict, data_dir: str) -> None:
         f"{', '.join(results['full_stats'])}")
 
 
-def phase_repeats(results: dict, data_dir: str, reps: int = 5) -> None:
-    """Spread of the full-size CUDA run: wall and phase seconds."""
+def phase_repeats(results: dict, data_dir: str, reps: int = 5,
+                  mode: int = 1) -> None:
+    """Spread of the full-size CUDA run of a mode: wall and phase
+    seconds."""
     import torch
 
-    out = os.path.join(data_dir, "full_repeat.snp")
+    tag = "" if mode == 1 else f"mode{mode}_"
+    r = results if mode == 1 else results[f"mode{mode}"]
+    out = os.path.join(data_dir, f"full_{tag}repeat.snp")
     walls, phases = [], []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st = run_mode1(results["full_path"], out, "cuda")
+        st = RUNS[mode](r["full_path"], out, "cuda")
         walls.append(time.perf_counter() - t0)
         phases.append(st["seconds"])
-    if open(out, "rb").read() != open(results["full_out"], "rb").read():
+    if open(out, "rb").read() != open(r["full_out"], "rb").read():
         raise AssertionError("a repeated run wrote another .snp")
-    n = os.path.getsize(results["full_path"])
-    log(f"[repeats] {reps} runs, wall s: median {np.median(walls):.4f}, "
-        f"min {min(walls):.4f}, max {max(walls):.4f}; median "
-        f"{n / np.median(walls) / 1e6:.3f} Mpos/s; all: "
-        f"{[round(w, 4) for w in walls]}")
+    n = r["n"]
+    log(f"[repeats] mode {mode}, {reps} runs, wall s: median "
+        f"{np.median(walls):.4f}, min {min(walls):.4f}, max "
+        f"{max(walls):.4f}; median {n / np.median(walls) / 1e6:.3f} Mpos/s; "
+        f"all: {[round(w, 4) for w in walls]}")
     for k in phases[0]:
         v = [p[k] for p in phases]
-        log(f"[repeats] {k}: median {np.median(v):.4f}, min {min(v):.4f}, "
-            f"max {max(v):.4f}")
+        log(f"[repeats] mode {mode} {k}: median {np.median(v):.4f}, min "
+            f"{min(v):.4f}, max {max(v):.4f}")
 
 
-def phase_profile(results: dict, data_dir: str) -> None:
+def phase_profile(results: dict, data_dir: str, mode: int = 1) -> None:
     """Device time by kernel over one profiled full-size CUDA run."""
     from collections import defaultdict
 
@@ -300,11 +355,13 @@ def phase_profile(results: dict, data_dir: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    out = os.path.join(data_dir, "full_profiled.snp")
+    r = results if mode == 1 else results[f"mode{mode}"]
+    tag = "" if mode == 1 else f"_mode{mode}"
+    out = os.path.join(data_dir, f"full_profiled{tag}.snp")
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_mode1(results["full_path"], out, "cuda")
+        RUNS[mode](r["full_path"], out, "cuda")
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     by_name: dict[str, float] = defaultdict(float)
@@ -315,11 +372,152 @@ def phase_profile(results: dict, data_dir: str) -> None:
     if not by_name:
         log("[profile] the profiler recorded no device time: not measured")
         return
-    log(f"[profile] device busy {busy:.1f} ms over {wall * 1e3:.1f} ms of "
-        f"profiled wall ({100 * busy / (wall * 1e3):.1f}%); unprofiled wall "
-        f"{results['full_wall'] * 1e3:.1f} ms")
+    log(f"[profile] mode {mode}: device busy {busy:.1f} ms over "
+        f"{wall * 1e3:.1f} ms of profiled wall "
+        f"({100 * busy / (wall * 1e3):.1f}%); unprofiled wall "
+        f"{r['full_wall'] * 1e3:.1f} ms")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"[profile] {ms:10.3f} ms  {100 * ms / busy:5.1f}%  {name[:110]}")
+
+
+def run_mode3(paths: dict, out: str, device: str):
+    from ebwt2indel_torch.models import pipeline
+    from ebwt2indel_torch.utils.config import Config
+
+    return pipeline.run_two_datasets_da(
+        Config(input1=paths["merged.ebwt"], input_da=paths["merged.da"],
+               output=out), log=lambda *a, **k: None, device=device)
+
+
+def run_mode2(paths: dict, out: str, device: str):
+    from ebwt2indel_torch.models import pipeline
+    from ebwt2indel_torch.utils.config import Config
+
+    return pipeline.run_two_datasets(
+        Config(input1=paths["a.ebwt"], input2=paths["b.ebwt"], output=out),
+        log=lambda *a, **k: None, device=device)
+
+
+RUNS = {1: run_mode1, 2: run_mode2, 3: run_mode3}
+
+
+def phase_pair_cuda_vs_cpu(data_dir: str) -> None:
+    """Modes 3 and 2 on CUDA against the CPU on phase 3's recipe, the two
+    haplotypes' reads as two collections."""
+    paths = make_pair_datasets(os.path.join(data_dir, "smoke_g200000_c20"),
+                               200_000, 7, 20)
+    n = os.path.getsize(paths["merged.ebwt"])
+    for mode in (3, 2):
+        outs, stats = {}, {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(data_dir, f"smoke_small_mode{mode}_{dev}.snp")
+            t0 = time.perf_counter()
+            stats[dev] = RUNS[mode](paths, out, dev)
+            log(f"[pair-cuda-vs-cpu] mode {mode} {dev}: "
+                f"{time.perf_counter() - t0:.3f} s on {n} merged positions, "
+                f"{stats[dev]['events']} events")
+            outs[dev] = open(out, "rb").read()
+        if outs["cuda"] != outs["cpu"]:
+            raise AssertionError(f"mode {mode}: CUDA .snp differs from the "
+                                 "CPU .snp")
+        keys = _COMPARED + (("da_values",) if mode == 2 else ())
+        for k in keys:
+            if stats["cuda"][k] != stats["cpu"][k]:
+                raise AssertionError(f"mode {mode} {k}: cuda "
+                                     f"{stats['cuda'][k]} != cpu "
+                                     f"{stats['cpu'][k]}")
+        if stats["cpu"]["events"] <= 0:
+            raise AssertionError(f"mode {mode}: the small pair dataset gave "
+                                 "no events")
+        log(f"[pair-cuda-vs-cpu] mode {mode}: .snp byte-identical "
+            f"({len(outs['cpu'])} bytes), stats equal: {', '.join(keys)}")
+
+
+def phase_pair_data(results: dict, data_dir: str) -> None:
+    tag = f"g{GENOME_LEN}_c{COVERAGE}_l{READ_LEN}"
+    t0 = time.perf_counter()
+    paths = make_pair_datasets(os.path.join(data_dir, tag), GENOME_LEN, SEED,
+                               COVERAGE)
+    n = os.path.getsize(paths["merged.ebwt"])
+    if n != os.path.getsize(paths["a.ebwt"]) + \
+            os.path.getsize(paths["b.ebwt"]):
+        raise AssertionError("the merged eBWT is not the sum of its parts")
+    log(f"[data] pair datasets ready in {time.perf_counter() - t0:.1f} s")
+    results["pair_paths"] = paths
+
+
+def phase_full_pair(results: dict, mode: int, data_dir: str,
+                    log_dir: str) -> None:
+    """Mode 3 or 2 at full size through ``cli.main`` on CUDA."""
+    import torch
+
+    from ebwt2indel_torch import cli
+    from ebwt2indel_torch.ops import rank_cuda
+
+    paths = results["pair_paths"]
+    args = (["-1", paths["a.ebwt"], "-2", paths["b.ebwt"]] if mode == 2
+            else ["-1", paths["merged.ebwt"], "-d", paths["merged.da"]])
+    out = os.path.join(data_dir, f"full_mode{mode}.snp")
+    os.makedirs(log_dir, exist_ok=True)
+    cli_log = os.path.join(log_dir, f"chip_smoke_cli_mode{mode}.log")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    rank_cuda.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args + ["-o", out], device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(rank_cuda.LAUNCHES)
+    queries = dict(rank_cuda.QUERIES)
+    peak = torch.cuda.max_memory_allocated()
+    text = buf.getvalue()
+    with open(cli_log, "w") as f:
+        f.write(text)
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc} (see {cli_log})")
+    (t_index,) = _grab(r"done\. \[([0-9.]+)s\]", text)
+    t_leaf, t_node = _grab(r"leaf phase ([0-9.]+)s, node phase ([0-9.]+)s",
+                           text)
+    (t_cluster,) = _grab(r"\[timing\] cluster detect[^0-9]*([0-9.]+)s",
+                         text)
+    (t_call,) = _grab(r"call\+emit ([0-9.]+)s", text)
+    lcp_values, n_total = _grab(r"Computed (\d+)/(\d+) LCP values", text,
+                                int)
+    (n_min,) = _grab(r"Found (\d+) LCP minima", text, int)
+    (n_clusters,) = _grab(r"Analyzed (\d+) clusters", text, int)
+    snp = open(out, "rb").read()
+    events = snp.count(b">") // 2  # a pair event is two records
+    phases = (f"index {t_index}, leaf {t_leaf}, node {t_node}, "
+              f"cluster {t_cluster}, call+emit {t_call}")
+    extra = ""
+    if mode == 2:
+        da_values, _ = _grab(r"Computed (\d+)/(\d+) DA values", text, int)
+        leaves, nodes = _grab(r"Processed (\d+) suffix-tree leaves and "
+                              r"(\d+) nodes", text, int)
+        extra = (f", da_values {da_values}, leaves {leaves}, "
+                 f"nodes {nodes}")
+    else:
+        (t_wait,) = _grab(r"DA-side index wait ([0-9.]+)s", text)
+        phases += f", DA-side wait {t_wait}"
+    log(f"[full] mode {mode} on {n_total} merged positions: {wall:.3f} s "
+        f"wall ({n_total / wall / 1e6:.3f} Mpos/s)")
+    log(f"[full] mode {mode} phase seconds: {phases}")
+    log(f"[full] mode {mode} stats: lcp_values {lcp_values}, n_min {n_min}, "
+        f"n_clusters {n_clusters}{extra}")
+    log(f"[full] mode {mode}: {events} events; .snp sha256 "
+        f"{hashlib.sha256(snp).hexdigest()}")
+    log(f"[full] mode {mode} torch.cuda.max_memory_allocated {peak} bytes")
+    log(f"[full] mode {mode} kernels {json.dumps(launches)}; queries "
+        f"{json.dumps(queries)}")
+    n = os.path.getsize(paths["merged.ebwt"])
+    if n_total != n or not (0 < lcp_values <= n) or events <= 0:
+        raise AssertionError(f"implausible full-size mode-{mode} result")
+    if launches["rank_decode"] <= 0:
+        raise AssertionError(f"rank_decode never launched on mode {mode}")
+    results[f"mode{mode}"] = {"full_path": paths, "full_out": out, "n": n,
+                              "full_wall": wall, "launches": launches}
 
 
 def phase_kernel_at_main_shape(results: dict) -> dict:
@@ -424,6 +622,18 @@ def main() -> int:
                 kernels.append(k)
             phase("repeats", phase_repeats, results, data_dir)
             phase("profile", phase_profile, results, data_dir)
+        phase("pair_cuda_vs_cpu", phase_pair_cuda_vs_cpu, data_dir)
+        phase("pair_data", phase_pair_data, results, data_dir)
+        if "pair_paths" in results:
+            for mode in (3, 2):
+                phase(f"full_mode{mode}", phase_full_pair, results, mode,
+                      data_dir, os.path.join(here, args.log_dir))
+            for mode in (3, 2):
+                if f"mode{mode}" in results:
+                    phase(f"repeats_mode{mode}", phase_repeats, results,
+                          data_dir, 3, mode)
+                    phase(f"profile_mode{mode}", phase_profile, results,
+                          data_dir, mode)
     log(f"[done] {time.perf_counter() - t0:.1f} s; failed phases: "
         f"{failures or 'none'}")
     if failures or not kernels:

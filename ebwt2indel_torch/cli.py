@@ -1,9 +1,10 @@
 """Command-line driver with the reference's exact flag surface (reference:
 ebwt2InDel.cpp:76-103 help text, 1677-1823 main). Counterpart of
-``ebwt2indel_tpu/cli.py``; this slice runs mode 1 and refuses modes 2
-(``-2``) and 3 (``-d``), which are not ported yet.
+``ebwt2indel_tpu/cli.py``, with its three run modes:
 
-    python -m ebwt2indel_torch.cli -1 reads.ebwt -o out.snp
+    python -m ebwt2indel_torch.cli -1 reads.ebwt -o out.snp           # mode 1
+    python -m ebwt2indel_torch.cli -1 a.ebwt -2 b.ebwt -o out.snp     # mode 2
+    python -m ebwt2indel_torch.cli -1 merged.ebwt -d merged.da -o out.snp
 """
 
 from __future__ import annotations
@@ -109,15 +110,20 @@ def main(argv=None, *, device="cuda") -> int:
               "BWT file (-1)\n")
         print(help_text())
         return 1
-    if cfg.input2 or cfg.input_da:
-        mode = "2 (-2)" if cfg.input2 else "3 (-d)"
-        print(f"Error: mode {mode} is not ported to the PyTorch/CUDA build "
-              "yet; only mode 1 (genotyping, -1 alone) runs here.")
-        return 2
 
     print("This is ebwt2InDel (PyTorch/CUDA build).")
-    print(f"Running on one sample (genotyping). Input eBWT file : "
-          f"{cfg.input1}")
+    if cfg.input2:
+        print(f"Running on two samples. Input eBWT files : {cfg.input1} "
+              f"and {cfg.input2}")
+        run = pipeline.run_two_datasets
+    elif cfg.input_da:
+        print(f"Running on one sample with input Document array. Input "
+              f"eBWT/DA files : {cfg.input1} and {cfg.input_da}")
+        run = pipeline.run_two_datasets_da
+    else:
+        print(f"Running on one sample (genotyping). Input eBWT file : "
+              f"{cfg.input1}")
+        run = pipeline.run_one_dataset
 
     r = cfg.resolved()
     print(f"Left-extending eBWT ranges by {r.k_left} bases.")
@@ -134,7 +140,7 @@ def main(argv=None, *, device="cuda") -> int:
     print()
 
     try:
-        pipeline.run_one_dataset(cfg, device=device)
+        run(cfg, device=device)
     except ValueError as e:
         # e.g. forbidden character in the input BWT — the reference prints the
         # message and exits 1 (dna_string.hpp:90-96)

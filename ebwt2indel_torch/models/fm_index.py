@@ -107,14 +107,19 @@ def lf_range(fm: FMIndex, first: torch.Tensor, second: torch.Tensor):
     return fm.F + r[..., 0, :], fm.F + r[..., 1, :]
 
 
-def extend_node(fm: FMIndex, nodes: torch.Tensor) -> torch.Tensor:
-    """Weiner-link extension of suffix-tree nodes by all 4 nucleotides
+def extend_coords(fm: FMIndex, coords: torch.Tensor) -> torch.Tensor:
+    """The 6 boundaries of suffix-tree nodes extended by all 4 nucleotides
     (dna_bwt.hpp:323-356): one rank of the 6 boundaries per node, in
-    node-major order. nodes: int64 (C, 7) -> int64 (C, 4, 7)."""
-    ranks = parallel_rank(fm, nodes[:, :6])  # (C, 6, 4)
-    ext = fm.F[:, None] + ranks.transpose(1, 2)  # (C, 4, 6)
+    node-major order. coords: int64 (C, 6) -> int64 (C, 4, 6)."""
+    ranks = parallel_rank(fm, coords)  # (C, 6, 4)
+    return fm.F[:, None] + ranks.transpose(1, 2)
+
+
+def extend_node(fm: FMIndex, nodes: torch.Tensor) -> torch.Tensor:
+    """Weiner-link extension of suffix-tree nodes by all 4 nucleotides.
+    nodes: int64 (C, 7) -> int64 (C, 4, 7)."""
     depth = (nodes[:, 6] + 1)[:, None, None].expand(-1, 4, 1)
-    return torch.cat([ext, depth], dim=-1)
+    return torch.cat([extend_coords(fm, nodes[:, :6]), depth], dim=-1)
 
 
 def node_num_children(nodes: torch.Tensor) -> torch.Tensor:

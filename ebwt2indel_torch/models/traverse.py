@@ -16,6 +16,12 @@ step on them, and queues the surviving children.
   extension by the 4 nucleotides, keeping children with >= 2 children.
 * After both phases: a prefix sum of the deltas gives the leaf-interior
   fills, and thr_K = flag bit 1 | fill_K, thr_R = bit 2 | fill_R.
+
+Mode 2 walks the suffix trees of two indexes in lockstep
+(``navigate_two_bwts``; reference ebwt2InDel.cpp:679-831): a row holds the
+node's boundaries in both, and the merged collection's are their sums. The
+leaf-pair step adds a third delta vector, the document array (DA), and the
+node-pair step adds flag bit 8 for the DA of size-1 leaves.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ class TraversalResult:
     thr_R: torch.Tensor  # (n,) uint8 — LCP_threshold[2i+1] (LCP[i] >= k_right)
     minima: torch.Tensor  # (n,) uint8
     stats: dict
+    da: torch.Tensor | None = None  # (n,) uint8, 1 = collection 2 (mode 2)
 
 
 def _char_major(children: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -51,6 +58,38 @@ def _char_major(children: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     return children.transpose(0, 1)[keep.transpose(0, 1)]
 
 
+def _add_bounds(dif: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
+    """+1 at each ``lo`` and -1 at each ``hi`` of an int32 delta vector: its
+    prefix sum is > 0 exactly on the union of the ranges [lo, hi)."""
+    idx = torch.cat([lo, hi])
+    val = torch.ones_like(idx, dtype=torch.int32)
+    val[lo.shape[0]:] = -1
+    dif.index_add_(0, idx, val)
+
+
+def _border_values(coords: torch.Tensor, depth: torch.Tensor, stats,
+                   K: int, k_right: int) -> torch.Tensor:
+    """Flag values at the borders j = 1..4 of nodes given by their 6
+    boundaries (C, 6) and depth (C, 1): 1 = thr_K and 2 = thr_R where the
+    border is not empty and not ``last`` (update_lcp_threshold,
+    include.hpp:826-860), 4 = an LCP minimum where the previous child has
+    >= 2 positions (update_lcp_minima, ebwt2InDel.cpp:357-391).
+    Returns (C, 4) uint8; adds the LCP and minima counts to stats[1:3]."""
+    last = coords[:, 5:6]
+    border = coords[:, 1:5]
+    prev = coords[:, 0:4]  # their left neighbours j-1
+    cond = (border > prev) & (border != last)
+    v = (cond & (depth >= K)).to(torch.uint8) \
+        + (cond & (depth >= k_right)).to(torch.uint8) * 2
+    # minima at borders j >= 2 (the first column is border j = 1)
+    cond_m = ((border - prev) >= 2) & (border < last - 1)
+    cond_m[:, 0] = False
+    v += cond_m.to(torch.uint8) * 4
+    stats[1] += cond.sum()
+    stats[2] += cond_m.sum()
+    return v
+
+
 def _leaf_body(fm: FMIndex, chunk, difs, stats, K: int, k_right: int):
     """Suffix-tree leaf step (reference update_LCP_leaf,
     ebwt2InDel.cpp:344-355; next_leaves, dna_bwt.hpp:358-379).
@@ -58,10 +97,7 @@ def _leaf_body(fm: FMIndex, chunk, difs, stats, K: int, k_right: int):
     first, second, depth = chunk.unbind(1)
     for dif, bound in zip(difs, (K, k_right)):
         on = depth >= bound
-        idx = torch.cat([first[on] + 1, second[on]])
-        val = torch.ones_like(idx, dtype=torch.int32)
-        val[idx.shape[0] // 2:] = -1
-        dif.index_add_(0, idx, val)
+        _add_bounds(dif, first[on] + 1, second[on])
     stats[0] += chunk.shape[0]
     stats[1] += (second - first - 1).sum()
 
@@ -76,27 +112,80 @@ def _node_body(fm: FMIndex, chunk, flags, stats, K: int, k_right: int):
     extension (update_lcp_threshold include.hpp:826-860; update_lcp_minima
     ebwt2InDel.cpp:357-391; next_nodes dna_bwt.hpp:381-404).
     chunk: (C, 7)."""
-    depth = chunk[:, 6:7]
-    last = chunk[:, 5:6]
-    border = chunk[:, 1:5]  # borders j = 1..4
-    prev = chunk[:, 0:4]  # their left neighbours j-1
-    cond = (border > prev) & (border != last)
-    v = (cond & (depth >= K)).to(torch.uint8) \
-        + (cond & (depth >= k_right)).to(torch.uint8) * 2
-    # minima at borders j >= 2 (the first column is border j = 1)
-    cond_m = ((border - prev) >= 2) & (border < last - 1)
-    cond_m[:, 0] = False
-    v += cond_m.to(torch.uint8) * 4
+    v = _border_values(chunk[:, :6], chunk[:, 6:7], stats, K, k_right)
     # each flagged position is written by exactly one (node, border) over the
     # whole traversal, so the add never collides (traverse.py:432-436)
+    border = chunk[:, 1:5]
     on = v > 0
     flags.index_add_(0, border[on], v[on])
     stats[0] += chunk.shape[0]
-    stats[1] += cond.sum()
-    stats[2] += cond_m.sum()
 
     ext = fm_ops.extend_node(fm, chunk)  # (C, 4, 7)
     return _char_major(ext, fm_ops.node_num_children(ext) >= 2)
+
+
+def _leaf_pair_body(fm1: FMIndex, fm2: FMIndex, chunk, difs, stats, K: int,
+                    k_right: int):
+    """Leaf-pair step of the lockstep two-index traversal, in the
+    int32-per-field layout of ``_leaf_pair_body_wide`` (traverse.py:589-626;
+    update_DA, ebwt2InDel.cpp:394-425). chunk: (C, 5) [f1, s1, f2, s2,
+    depth]. In the merged collection the leaf covers [f1+f2, s1+s2), its
+    collection-1 part first: K and R fill (f1+f2, end) and DA fills
+    [f2+s1, end), the collection-2 part. Children are kept when the two
+    sides together hold >= 2 positions (cpp:452-472); size-1 leaves are
+    recovered in the node phase."""
+    f1, s1, f2, s2, depth = chunk.unbind(1)
+    start1 = f1 + f2
+    end = s1 + s2
+    for dif, bound in zip(difs[:2], (K, k_right)):
+        on = depth >= bound
+        _add_bounds(dif, start1[on] + 1, end[on])
+    _add_bounds(difs[2], f2 + s1, end)
+    stats[0] += chunk.shape[0]
+    stats[1] += (end - start1 - 1).sum()
+    stats[2] += (end - start1).sum()  # da_values
+
+    lo1, hi1 = fm_ops.lf_range(fm1, f1, s1)  # (C, 4)
+    lo2, hi2 = fm_ops.lf_range(fm2, f2, s2)
+    children = torch.stack(
+        [lo1, hi1, lo2, hi2, (depth + 1)[:, None].expand_as(lo1)], dim=-1)
+    return _char_major(children, (hi1 - lo1) + (hi2 - lo2) >= 2)
+
+
+def _node_pair_body(fm1: FMIndex, fm2: FMIndex, chunk, flags, stats, K: int,
+                    k_right: int):
+    """Node-pair step (traverse.py:629-710): size-1 leaf recovery
+    (find_leaves, ebwt2InDel.cpp:474-527), the merged node's LCP and minima
+    flags (cpp:792-802), and the pairwise Weiner extension keeping pairs
+    with >= 2 union children (cpp:529-553). chunk: (C, 13) = the 6
+    boundaries in each index, then the depth. The merged node's boundaries
+    are their sums (include.hpp:476-490)."""
+    c1 = chunk[:, 0:6]
+    c2 = chunk[:, 6:12]
+    depth = chunk[:, 12:13]
+    merged = c1 + c2
+    # find_leaves: a child interval of one merged position is a leaf; it
+    # counts as a DA value, and DA = 1 when it comes from collection 2
+    l1 = c1[:, 1:] - c1[:, :-1]
+    l2 = c2[:, 1:] - c2[:, :-1]
+    single = (l1 + l2) == 1
+    v = (single & (l2 == 1)).to(torch.uint8) * 8  # at merged[:, 0:5]
+    v[:, 1:] += _border_values(merged, depth, stats, K, k_right)
+    # a singleton position gets its DA bit from exactly one node pair, and
+    # the LCP bits are written once each as in mode 1 (traverse.py:647-649),
+    # so the bits add without carries
+    pos = merged[:, 0:5]
+    on = v > 0
+    flags.index_add_(0, pos[on], v[on])
+    stats[0] += chunk.shape[0]
+    stats[3] += single.sum()
+
+    ext1 = fm_ops.extend_coords(fm1, c1)  # (C, 4, 6)
+    ext2 = fm_ops.extend_coords(fm2, c2)
+    union = (ext1[..., 1:] > ext1[..., :-1]) | (ext2[..., 1:] > ext2[..., :-1])
+    children = torch.cat(
+        [ext1, ext2, (depth + 1)[:, None, :].expand(-1, 4, 1)], dim=-1)
+    return _char_major(children, union.sum(-1) >= 2)
 
 
 def _run_phase(init: torch.Tensor, step) -> int:
@@ -164,3 +253,49 @@ def navigate_one_bwt(fm: FMIndex, K: int, k_right: int) -> TraversalResult:
     }
     return TraversalResult(thr_K=thr_K, thr_R=thr_R, minima=minima,
                            stats=stats)
+
+
+def navigate_two_bwts(fm1: FMIndex, fm2: FMIndex, K: int,
+                      k_right: int) -> TraversalResult:
+    """Lockstep navigation of two suffix trees that simulates the merged
+    collection (reference navigate_two_bwts, ebwt2InDel.cpp:679-831): the
+    leaf-pair phase, then the node-pair phase, over n = n1 + n2 merged
+    positions. ``da`` is the merged document array. ``stats`` adds
+    ``da_values`` to the counts of ``navigate_one_bwt``."""
+    n, dev = fm1.n + fm2.n, fm1.device
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    difs = tuple(torch.zeros(n + 1, dtype=torch.int32, device=dev)
+                 for _ in range(3))  # K, R, DA
+    st_l = torch.zeros(3, dtype=torch.int64, device=dev)  # leaves, lcp, da
+    maxp_l = _run_phase(
+        torch.cat([fm1.first_leaf()[:2], fm2.first_leaf()[:2], zero])[None],
+        lambda c: _leaf_pair_body(fm1, fm2, c, difs, st_l, K, k_right))
+    fill_K, fill_R, fill_D = (torch.cumsum(d[:n], 0, dtype=torch.int32) > 0
+                              for d in difs)
+    del difs
+    synchronize(dev)
+    t1 = time.perf_counter()
+
+    flags = torch.zeros(n, dtype=torch.uint8, device=dev)
+    # nodes, lcp, n_min, da
+    st_n = torch.zeros(4, dtype=torch.int64, device=dev)
+    maxp_n = _run_phase(
+        torch.cat([fm1.root()[:6], fm2.root()[:6], zero])[None],
+        lambda c: _node_pair_body(fm1, fm2, c, flags, st_n, K, k_right))
+    thr_K = ((flags & 1).bool() | fill_K).to(torch.uint8)
+    thr_R = ((flags & 2).bool() | fill_R).to(torch.uint8)
+    minima = (flags >> 2) & 1
+    da = ((flags & 8).bool() | fill_D).to(torch.uint8)
+    synchronize(dev)
+    t2 = time.perf_counter()
+
+    l, n_ = st_l.tolist(), st_n.tolist()
+    stats = {
+        "leaves": l[0], "nodes": n_[0], "lcp_values": 1 + l[1] + n_[1],
+        "n_min": n_[2], "da_values": l[2] + n_[3],
+        "max_pending": max(maxp_l, maxp_n),
+        "leaf_seconds": t1 - t0, "node_seconds": t2 - t1,
+    }
+    return TraversalResult(thr_K=thr_K, thr_R=thr_R, minima=minima,
+                           stats=stats, da=da)

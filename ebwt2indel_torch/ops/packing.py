@@ -12,6 +12,9 @@ Layout (reference: internal/dna_string.hpp:19-41, 320-369, 554-585):
   "1 cache miss per parallel_rank" (dna_string.hpp:13-17, 140-152).
 
 Block counters are 32-bit, so one run is capped below 2^32 characters.
+
+Mode 3 also reads a document array (``read_da_file``) and packs it into the
+rank-1 bitvector layout of ``ops/bits.py`` (``pack_bitvector``).
 """
 
 from __future__ import annotations
@@ -118,15 +121,30 @@ def pack_codes(codes: np.ndarray, term: int = dna.DEFAULT_TERM) -> PackedBwt:
     )
 
 
-def read_ebwt_codes(path: str, term: int = dna.DEFAULT_TERM) -> np.ndarray:
-    """Read an ASCII eBWT file and convert to codes, validating the alphabet
-    (reference: internal/dna_string.hpp:76-105)."""
-    raw = np.fromfile(path, dtype=np.uint8)
+def ascii_to_codes(raw: np.ndarray, term: int = dna.DEFAULT_TERM) -> np.ndarray:
+    """ASCII bytes -> codes, validating the alphabet with the reference's
+    message (internal/dna_string.hpp:76-105)."""
     codes = dna.code_table(term)[raw]
     bad = codes == 255
     if bad.any():
         raise ValueError(forbidden_message(int(raw[bad.argmax()]), term))
     return codes
+
+
+def read_ebwt_codes(path: str, term: int = dna.DEFAULT_TERM) -> np.ndarray:
+    """Read an ASCII eBWT file and convert to codes."""
+    return ascii_to_codes(np.fromfile(path, dtype=np.uint8), term)
+
+
+def pack_bytes(raw: np.ndarray, term: int = dna.DEFAULT_TERM) -> PackedBwt:
+    """Pack raw ASCII bytes: the native multithreaded packer where it
+    builds, else the numpy path (same result)."""
+    from . import native
+
+    try:
+        return native.pack_bytes(raw, term)
+    except native.NativeUnavailable:
+        return pack_codes(ascii_to_codes(raw, term), term)
 
 
 def pack_file(path: str, term: int = dna.DEFAULT_TERM) -> PackedBwt:
@@ -139,3 +157,32 @@ def pack_file(path: str, term: int = dna.DEFAULT_TERM) -> PackedBwt:
         return native.pack_file(path, term)
     except native.NativeUnavailable:
         return pack_codes(read_ebwt_codes(path, term), term)
+
+
+_POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], dtype=np.uint8)
+
+
+def pack_bitvector(bits: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Pack a 0/1 array into the rank-1 layout of ``ops.rank.bv_rank1``:
+    (n_blocks*4,) uint32 FLAT words, LSB-first, and (n_blocks,) int32
+    exclusive per-block popcounts, n_blocks = n // 128 + 1 (the document
+    array of mode 3, ebwt2InDel.cpp:1495-1508)."""
+    bits = np.asarray(bits)
+    n = int(bits.shape[0])
+    n_blocks = n // BLOCK + 1
+    # little bit order packs positions 8k..8k+7 into byte k LSB-first, so
+    # four bytes read as one little-endian uint32 are 32 positions LSB-first
+    packed = np.zeros(n_blocks * BLOCK // 8, dtype=np.uint8)
+    packed[: (n + 7) // 8] = np.packbits(bits, bitorder="little")
+    per_block = _POPCOUNT8[packed].reshape(n_blocks, BLOCK // 8).sum(
+        axis=1, dtype=np.int64)
+    cum = np.zeros(n_blocks, dtype=np.int64)
+    np.cumsum(per_block[:-1], out=cum[1:])
+    return packed.view("<u4").astype(np.uint32), cum.astype(np.int32)
+
+
+def read_da_file(path: str, n: int) -> np.ndarray:
+    """Read an ASCII '0'/'1' document-array file, one byte per BWT position,
+    '1' marking the second collection (ebwt2InDel.cpp:1495-1508)."""
+    raw = np.fromfile(path, dtype=np.uint8, count=n)
+    return (raw == ord("1")).astype(np.uint8)

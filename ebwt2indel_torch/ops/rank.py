@@ -7,7 +7,9 @@ dna_string.hpp:113-135, 140-152, 182-272):
   tensor goes to the hand-written kernel (``ops/rank_cuda.py``,
   ``csrc/rank_decode.cu``) and a CPU tensor to ``parallel_rank_plain``,
   the kernel's plain PyTorch version. There is no fallback between them.
-* ``access`` and ``select`` are plain PyTorch on either device.
+* ``access``, ``select`` and the bitvector rank ``bv_rank1`` / ``bv_get``
+  (rank.py:389-454, the document array of modes 2 and 3) are plain
+  PyTorch on either device.
 
 Blocks are int32 storage holding the uint32 bit patterns of
 ``ops/packing.py``. This module widens gathered rows to int64 and masks them
@@ -163,3 +165,31 @@ def select(blocks: torch.Tensor, block_counts: torch.Tensor, r: torch.Tensor,
     Assumes 0 <= r < total count of c (dna_string.hpp:182-188)."""
     b = select_block(block_counts, r, c)
     return b * BLOCK + select_in_block(_rows(blocks, b), r, c)
+
+
+# rank-1 over a packed bitvector (the document array): FLAT int32 words,
+# four per 128-position block, and int64 exclusive per-block counts (the
+# layout of ops/bits.py::bv_build and ops/packing.py::pack_bitvector).
+# Indices are clamped to the valid range, as JAX's gather clamps.
+
+
+def _bv_row(words: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., 4) words of block b as int64 uint32 values (rank.py:389-394)."""
+    b = b.clamp(0, words.shape[0] // WPB - 1)
+    idx = WPB * b[..., None] + torch.arange(WPB, device=b.device)
+    return words[idx].to(torch.int64) & _LOW32
+
+
+def bv_rank1(words: torch.Tensor, counts: torch.Tensor,
+             i: torch.Tensor) -> torch.Tensor:
+    """Number of 1-bits before position i, int64 (rank.py:397-409)."""
+    b = i >> 7
+    inblock = popcount32(_bv_row(words, b)
+                         & _prefix_masks(i & (BLOCK - 1))).sum(-1)
+    return counts[b.clamp(0, counts.shape[0] - 1)] + inblock
+
+
+def bv_get(words: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Bit at position i, int64 0 or 1 (rank.py:449-454)."""
+    word = words[(i >> 5).clamp(0, words.shape[0] - 1)].to(torch.int64)
+    return (word >> (i & 31)) & 1

@@ -70,3 +70,20 @@ def ebwt_of_reads(reads: list[str], term: str = "#") -> str:
     sa = _ebwt_sa(raw, ord(term))
     prev = (sa - 1) % len(raw)
     return raw[prev].tobytes().decode("ascii")
+
+
+def ebwt_and_da_of_two(reads1: list[str], reads2: list[str],
+                       term: str = "#") -> tuple[str, str]:
+    """Merged eBWT of two collections plus the document array ('0'/'1' per
+    position, '1' for the second collection). Terminators order by
+    position, so on equal strings collection-1 suffixes precede
+    collection-2 suffixes (the merge convention of update_DA,
+    ebwt2InDel.cpp:394-449)."""
+    t1 = term.join(reads1) + term
+    text = t1 + term.join(reads2) + term
+    raw = np.frombuffer(text.encode("ascii"), dtype=np.uint8)
+    sa = _ebwt_sa(raw, ord(term))
+    prev = (sa - 1) % len(raw)
+    bwt = raw[prev].tobytes().decode("ascii")
+    da = ((sa >= len(t1)).astype(np.uint8) + ord("0")).tobytes()
+    return bwt, da.decode("ascii")

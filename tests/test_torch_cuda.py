@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA rank kernel against
-its plain PyTorch version, and mode 1 on the card against mode 1 on the CPU.
+its plain PyTorch version, and modes 1, 2 and 3 on the card against the same
+mode on the CPU.
 A CUDA kernel has no CPU mode, so without a card these skip. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -59,3 +60,51 @@ def test_mode1_cuda_matches_cpu(tmp_path, rng):
                                  log=lambda *a, **k: None, device=dev)
         outs[dev] = out.read_bytes()
     assert outs["cuda"] == outs["cpu"] and outs["cpu"]
+
+
+def _pair_reads(rng):
+    genome = simulate.random_genome(rng, 20_000)
+    hap2, _ = simulate.plant_variants(rng, genome, snp_rate=0.004,
+                                      indel_rate=0.001)
+    return (simulate.sample_reads(rng, genome, 8, 100),
+            simulate.sample_reads(rng, hap2, 8, 100))
+
+
+def _cuda_vs_cpu(run, cfg_of, tmp_path):
+    outs, stats = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"{dev}.snp"
+        stats[dev] = run(cfg_of(str(out)), log=lambda *a, **k: None,
+                         device=dev)
+        outs[dev] = out.read_bytes()
+    assert outs["cuda"] == outs["cpu"] and outs["cpu"]
+    for k in ("leaves", "nodes", "lcp_values", "n_min", "n_clusters",
+              "events", "cluster_nr"):
+        assert stats["cuda"][k] == stats["cpu"][k], k
+    return stats
+
+
+def test_mode3_cuda_matches_cpu(tmp_path, rng):
+    """The .snp of mode 3 on the card is byte-identical to the CPU's."""
+    _needs_cuda()
+    bwt, da = ebwt.ebwt_and_da_of_two(*_pair_reads(rng))
+    (tmp_path / "m.ebwt").write_text(bwt)
+    (tmp_path / "m.da").write_text(da)
+    _cuda_vs_cpu(pipeline.run_two_datasets_da,
+                 lambda out: Config(input1=str(tmp_path / "m.ebwt"),
+                                    input_da=str(tmp_path / "m.da"),
+                                    output=out), tmp_path)
+
+
+def test_mode2_cuda_matches_cpu(tmp_path, rng):
+    """The .snp of mode 2 on the card is byte-identical to the CPU's, and
+    the traversal's DA count agrees."""
+    _needs_cuda()
+    reads1, reads2 = _pair_reads(rng)
+    (tmp_path / "a.ebwt").write_text(ebwt.ebwt_of_reads(reads1))
+    (tmp_path / "b.ebwt").write_text(ebwt.ebwt_of_reads(reads2))
+    st = _cuda_vs_cpu(pipeline.run_two_datasets,
+                      lambda out: Config(input1=str(tmp_path / "a.ebwt"),
+                                         input2=str(tmp_path / "b.ebwt"),
+                                         output=out), tmp_path)
+    assert st["cuda"]["da_values"] == st["cpu"]["da_values"]

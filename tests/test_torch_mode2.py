@@ -1,0 +1,75 @@
+"""Mode 2 end to end (two eBWTs, ``-2``): the port's .snp (ebwt2indel_torch,
+on the CPU) must be byte-identical to the JAX package's over the flag
+matrix of tests/test_parity.py, with the stats equal; and the port's CLI
+must write what its pipeline writes."""
+
+import numpy as np
+import pytest
+
+from ebwt2indel_tpu.models import pipeline as jpipeline
+from ebwt2indel_tpu.models import traverse as jtraverse
+from ebwt2indel_tpu.tools import ebwt as jebwt
+from ebwt2indel_tpu.utils.config import Config
+from ebwt2indel_torch import cli
+from ebwt2indel_torch.models import pipeline
+from tests.test_parity import FLAG_SETS, _make_pair_inputs, apply_flags
+
+_QUIET = {"log": lambda *a, **k: None}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _small_jax_chunks():
+    """The JAX queue pays a whole chunk per step on the CPU; a smaller chunk
+    changes none of its results (the traversal's writes do not depend on
+    visit order) and keeps these tests short."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtraverse, "CHUNK", 4096)
+        yield
+_STATS = ("events", "cluster_nr", "leaves", "nodes", "lcp_values", "n_min",
+          "da_values", "n_clusters")
+
+
+@pytest.fixture(scope="module")
+def pair(tmp_path_factory):
+    """The pair data of tests/test_parity.py as two eBWTs, built once."""
+    d = tmp_path_factory.mktemp("torch_mode2")
+    reads1, reads2 = _make_pair_inputs(d, np.random.default_rng(0xEB37))
+    (d / "a.ebwt").write_text(jebwt.ebwt_of_reads(reads1))
+    (d / "b.ebwt").write_text(jebwt.ebwt_of_reads(reads2))
+    return d
+
+
+def _cfg(d, out, extra=()):
+    return apply_flags(Config(input1=str(d / "a.ebwt"),
+                              input2=str(d / "b.ebwt"),
+                              output=str(d / out)), list(extra))
+
+
+@pytest.mark.parametrize("extra", FLAG_SETS)
+def test_mode2_byte_identical_to_jax(pair, extra):
+    name = "".join(extra)
+    jst = jpipeline.run_two_datasets(_cfg(pair, f"jax{name}.snp", extra),
+                                     **_QUIET)
+    tst = pipeline.run_two_datasets(_cfg(pair, f"torch{name}.snp", extra),
+                                    device="cpu", **_QUIET)
+    want = (pair / f"jax{name}.snp").read_bytes()
+    assert (pair / f"torch{name}.snp").read_bytes() == want
+    assert tuple(extra) == ("-q", "1") or len(want) > 0
+    for k in _STATS:
+        assert tst[k] == jst[k], k
+    assert set(tst["seconds"]) == {"index", "leaf_phase", "node_phase",
+                                   "cluster", "call_emit"}
+
+
+def test_cli_mode2_matches_pipeline(pair, capsys):
+    out = str(pair / "cli.snp")
+    assert cli.main(["-1", str(pair / "a.ebwt"), "-2", str(pair / "b.ebwt"),
+                     "-o", out], device="cpu") == 0
+    text = capsys.readouterr().out
+    assert "This is ebwt2InDel (PyTorch/CUDA build)." in text
+    assert "Running on two samples." in text
+    assert "DA values." in text
+    pipeline.run_two_datasets(_cfg(pair, "cli_ref.snp"), device="cpu",
+                              **_QUIET)
+    got = open(out, "rb").read()
+    assert got == (pair / "cli_ref.snp").read_bytes() and got

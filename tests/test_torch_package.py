@@ -11,6 +11,7 @@ import torch
 
 from ebwt2indel_torch import cli, device
 from ebwt2indel_torch.models import fm_index, pipeline
+from ebwt2indel_torch.ops import bits
 from ebwt2indel_torch.utils.config import Config
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -55,6 +56,8 @@ def test_default_device_raises_without_cuda():
         fm_index.FMIndex.from_numpy(
             np.zeros((1, 16), np.uint32),
             [[0, 0, 0, 0]], [0, 0, 0, 0], 0, ord("#"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bits.from_numpy(np.zeros(4, np.uint32), [0])
     assert device.resolve("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         device.resolve("meta")
@@ -70,3 +73,20 @@ def test_cli_and_pipeline_default_to_cuda(tmp_path):
             log=lambda *a, **k: None)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["-1", str(path), "-o", str(tmp_path / "o.snp")])
+    da = tmp_path / "r.da"
+    da.write_text("0101")
+    for run, cfg in (
+            (pipeline.run_two_datasets,
+             Config(input1=str(path), input2=str(path),
+                    output=str(tmp_path / "o2.snp"))),
+            (pipeline.run_two_datasets_da,
+             Config(input1=str(path), input_da=str(da),
+                    output=str(tmp_path / "o3.snp")))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run(cfg, log=lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["-1", str(path), "-2", str(path), "-o",
+                  str(tmp_path / "o.snp")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["-1", str(path), "-d", str(da), "-o",
+                  str(tmp_path / "o.snp")])

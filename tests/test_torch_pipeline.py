@@ -1,7 +1,7 @@
 """Mode 1 end to end: the port's .snp (ebwt2indel_torch, on the CPU) must be
 byte-identical to the JAX package's on the same input and flags; plus the
-port's CLI surface (help, missing file, forbidden character, refused modes
-2 and 3)."""
+port's CLI surface (help, missing file, forbidden character, the refused
+-2 with -d)."""
 
 import os
 
@@ -102,16 +102,23 @@ def test_cli_forbidden_character(tmp_path, capsys):
 
 
 def test_cli_refuses_modes_2_and_3(tmp_path, capsys):
+    """-2 together with -d is refused, as the reference refuses it; -2 or -d
+    alone now runs its mode (modes 2 and 3 are ported)."""
     a = tmp_path / "a.ebwt"
     a.write_text("AC#GT#")
+    da = tmp_path / "a.da"
+    da.write_text("010110")
     out = str(tmp_path / "o.snp")
-    assert cli.main(["-1", str(a), "-2", str(a), "-o", out],
-                    device="cpu") == 2
-    assert "mode 2 (-2) is not ported" in capsys.readouterr().out
-    assert cli.main(["-1", str(a), "-d", str(a), "-o", out],
-                    device="cpu") == 2
-    assert "mode 3 (-d) is not ported" in capsys.readouterr().out
-    assert cli.main(["-1", str(a), "-2", str(a), "-d", str(a), "-o", out],
+    assert cli.main(["-1", str(a), "-2", str(a), "-d", str(da), "-o", out],
                     device="cpu") == 1
     assert "Document array (-d) can only be used" in capsys.readouterr().out
     assert not os.path.exists(out)
+    assert cli.main(["-1", str(a), "-2", str(a), "-o", out],
+                    device="cpu") == 0
+    assert "Running on two samples." in capsys.readouterr().out
+    assert os.path.exists(out)
+    os.remove(out)
+    assert cli.main(["-1", str(a), "-d", str(da), "-o", out],
+                    device="cpu") == 0
+    assert "input Document array" in capsys.readouterr().out
+    assert os.path.exists(out)
