@@ -15,8 +15,9 @@ Phases, each of which must pass (the script exits 1 otherwise):
    bench's E. coli-scale dataset, ~116M BWT positions, built once into
    ``data/``) through ``ebwt2indel_torch.cli.main`` on CUDA, with every
    kernel's launch count reset just before and read just after;
-5. the same full-size run on the CPU (the plain PyTorch path): the .snp must
-   be byte-identical and the stats equal;
+5. mode 1 on CUDA against the CPU (the plain PyTorch path) on the same
+   recipe cut to a 1.15 Mbp genome (~29M positions): the .snp must be
+   byte-identical and the stats equal;
 6. the rank kernel timed against its plain version at the main path's shape:
    the first node chunk (256k nodes x 6 boundaries) of the full-size index;
 7. five more full-size CUDA runs for the spread of the wall and phase times
@@ -31,7 +32,18 @@ Phases, each of which must pass (the script exits 1 otherwise):
 10. modes 3 (``-1 merged.ebwt -d merged.da``) and 2 (``-1 a.ebwt -2
     b.ebwt``) at full size through ``cli.main`` on CUDA, each with the
     kernel's launch count reset just before and read just after; then three
-    more runs of each for the spread, and one of each under the profiler.
+    more runs of each for the spread, and one of each under the profiler;
+11. ``packed_116M``: modes 1, 3 and 2 at full size on the dense and on the
+    bit-packed route (``packed=``), each run with the launch counts reset
+    just before and read just after: the .snp of both routes must equal the
+    ``cli.main`` run's, with equal stats; wall and peak device memory of
+    each route;
+12. ``scale_mode1_1G``: ``data/huge_1g.ebwt`` from the port's ``genhuge``
+    (41.6 Mbp genome, 25x, 100 bp reads, seed 0xB16B16: 1,050,398,182
+    positions), mode 1 through ``cli.main`` on the default route, then on
+    the other route through ``run_one_dataset``: byte-identical .snp and
+    equal stats; wall, phase seconds, peak device memory and launches of
+    each route. The packed route must peak at most 12 bytes per position.
 
 It prints the per-kernel JSON line, then the card line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -61,6 +73,12 @@ GENOME_LEN = 4_600_000
 SEED = 0xBE7C
 COVERAGE = 25
 READ_LEN = 100
+CPU_GENOME_LEN = 1_150_000  # the CUDA-vs-CPU comparison's depth (~29M)
+HUGE_GENOME_LEN = 41_600_000  # the 1.05G-position scale cell
+# what the recipe gives with today's simulate.py (repo root and port alike);
+# the JAX package's round-3 record, 1,050,399,394, predates a change there
+HUGE_N = 1_050_398_182
+PACKED_MAX_BYTES_PER_POS = 12
 
 
 def log(msg: str) -> None:
@@ -190,24 +208,27 @@ def phase_kernel_vs_plain() -> None:
                              "maximum")
 
 
-def run_mode1(path: str, out: str, device: str):
+def run_mode1(path: str, out: str, device: str, packed=None):
     from ebwt2indel_torch.models import pipeline
     from ebwt2indel_torch.utils.config import Config
 
     return pipeline.run_one_dataset(Config(input1=path, output=out),
-                                    log=lambda *a, **k: None, device=device)
+                                    log=lambda *a, **k: None, device=device,
+                                    packed=packed)
 
 
 _COMPARED = ("leaves", "nodes", "lcp_values", "n_min", "n_clusters",
              "events", "cluster_nr")
 
 
-def phase_cuda_vs_cpu(data_dir: str) -> None:
-    path = os.path.join(data_dir, "smoke_g200000_c20_l100.ebwt")
-    n = make_dataset(path, 200_000, 7, 20)
+def phase_cuda_vs_cpu(data_dir: str, genome_len: int = 200_000,
+                      seed: int = 7, coverage: float = 20) -> None:
+    tag = f"g{genome_len}_c{coverage}_l{READ_LEN}"
+    path = os.path.join(data_dir, f"smoke_{tag}.ebwt")
+    n = make_dataset(path, genome_len, seed, coverage)
     outs, stats = {}, {}
     for dev in ("cuda", "cpu"):
-        out = os.path.join(data_dir, f"smoke_small_{dev}.snp")
+        out = os.path.join(data_dir, f"smoke_{tag}_{dev}.snp")
         t0 = time.perf_counter()
         stats[dev] = run_mode1(path, out, dev)
         log(f"[cuda-vs-cpu] {dev}: {time.perf_counter() - t0:.3f} s on "
@@ -232,12 +253,60 @@ def _grab(pattern: str, text: str, cast=float):
     return tuple(cast(g) for g in m.groups())
 
 
-def phase_full(results: dict, data_dir: str, log_dir: str) -> None:
+def _cli_run(args: list, cli_log: str) -> dict:
+    """One ``cli.main`` run on CUDA, with the launch counts and the peak
+    device memory reset just before and read just after; its log goes to
+    ``cli_log``."""
     import torch
 
     from ebwt2indel_torch import cli
     from ebwt2indel_torch.ops import rank_cuda
 
+    os.makedirs(os.path.dirname(cli_log), exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rank_cuda.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args, device="cuda")
+    torch.cuda.synchronize()
+    r = {"wall": time.perf_counter() - t0, "text": buf.getvalue(),
+         "launches": dict(rank_cuda.LAUNCHES),
+         "queries": dict(rank_cuda.QUERIES),
+         "peak": torch.cuda.max_memory_allocated()}
+    with open(cli_log, "w") as f:
+        f.write(r["text"])
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc} (see {cli_log})")
+    return r
+
+
+def _mode1_log(text: str) -> dict:
+    """The stats (``_COMPARED``, ``n``) and phase ``seconds`` of a mode-1
+    ``cli.main`` log."""
+    st = {}
+    st["leaves"], st["nodes"] = _grab(
+        r"Processed (\d+) suffix-tree leaves and (\d+) nodes", text, int)
+    st["lcp_values"], st["n"] = _grab(r"Computed (\d+)/(\d+) LCP values",
+                                      text, int)
+    (st["n_min"],) = _grab(r"Found (\d+) LCP minima", text, int)
+    (st["n_clusters"],) = _grab(r"Analyzed (\d+) clusters", text, int)
+    st["events"], clusters = _grab(r"Stored to file (\d+) events clustered "
+                                   r"in (\d+) clusters", text, int)
+    st["cluster_nr"] = clusters + 1
+    (t_index,) = _grab(r"done\. \[([0-9.]+)s\]", text)
+    t_leaf, t_node = _grab(r"leaf phase ([0-9.]+)s, node phase ([0-9.]+)s",
+                           text)
+    (t_cluster,) = _grab(r"cluster detect \(device\) ([0-9.]+)s", text)
+    (t_call,) = _grab(r"call\+emit ([0-9.]+)s", text)
+    st["seconds"] = {"index": t_index, "leaf_phase": t_leaf,
+                     "node_phase": t_node, "cluster": t_cluster,
+                     "call_emit": t_call}
+    return st
+
+
+def phase_full(results: dict, data_dir: str, log_dir: str) -> None:
     tag = f"g{GENOME_LEN}_c{COVERAGE}_l{READ_LEN}"
     path = os.path.join(data_dir, f"reads_{tag}.ebwt")
     t0 = time.perf_counter()
@@ -245,51 +314,20 @@ def phase_full(results: dict, data_dir: str, log_dir: str) -> None:
     log(f"[full] set-up: dataset of {n} BWT positions ready in "
         f"{time.perf_counter() - t0:.1f} s ({path})")
     out = os.path.join(data_dir, f"reads_{tag}.snp")
-    os.makedirs(log_dir, exist_ok=True)
-    cli_log = os.path.join(log_dir, "chip_smoke_cli.log")
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    buf = io.StringIO()
-    rank_cuda.reset_launches()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["-1", path, "-o", out], device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(rank_cuda.LAUNCHES)
-    queries = dict(rank_cuda.QUERIES)
-    peak = torch.cuda.max_memory_allocated()
-    text = buf.getvalue()
-    with open(cli_log, "w") as f:
-        f.write(text)
-    if rc != 0:
-        raise AssertionError(f"cli.main returned {rc} (see {cli_log})")
-    (t_index,) = _grab(r"done\. \[([0-9.]+)s\]", text)
-    t_leaf, t_node = _grab(r"leaf phase ([0-9.]+)s, node phase ([0-9.]+)s",
-                           text)
-    (t_cluster,) = _grab(r"cluster detect \(device\) ([0-9.]+)s", text)
-    (t_call,) = _grab(r"call\+emit ([0-9.]+)s", text)
-    lcp_values, n_total = _grab(r"Computed (\d+)/(\d+) LCP values", text, int)
-    (n_min,) = _grab(r"Found (\d+) LCP minima", text, int)
-    leaves, nodes = _grab(r"Processed (\d+) suffix-tree leaves and (\d+) "
-                          r"nodes", text, int)
-    (n_clusters,) = _grab(r"Analyzed (\d+) clusters", text, int)
-    events, clusters = _grab(r"Stored to file (\d+) events clustered in "
-                             r"(\d+) clusters", text, int)
+    r = _cli_run(["-1", path, "-o", out],
+                 os.path.join(log_dir, "chip_smoke_cli.log"))
+    st = _mode1_log(r["text"])
+    wall, launches = r["wall"], r["launches"]
     digest = hashlib.sha256(open(out, "rb").read()).hexdigest()
-    log(f"[full] mode 1 on {n_total} positions: {wall:.3f} s wall "
-        f"({n_total / wall / 1e6:.3f} Mpos/s)")
-    log(f"[full] phase seconds: index {t_index}, leaf {t_leaf}, node "
-        f"{t_node}, cluster {t_cluster}, call+emit {t_call}")
-    log(f"[full] stats: leaves {leaves}, nodes {nodes}, lcp_values "
-        f"{lcp_values}, n_min {n_min}, n_clusters {n_clusters}")
-    log(f"[full] {events} events in {clusters} clusters; .snp sha256 "
-        f"{digest}")
-    log(f"[full] torch.cuda.max_memory_allocated {peak} bytes")
+    log(f"[full] mode 1 on {st['n']} positions: {wall:.3f} s wall "
+        f"({st['n'] / wall / 1e6:.3f} Mpos/s)")
+    log(f"[full] phase seconds: {st['seconds']}")
+    log(f"[full] stats: " + ", ".join(f"{k} {st[k]}" for k in _COMPARED))
+    log(f"[full] .snp sha256 {digest}")
+    log(f"[full] torch.cuda.max_memory_allocated {r['peak']} bytes")
     log(f"[full] kernels {json.dumps(launches)}; queries "
-        f"{json.dumps(queries)}")
-    if n_total != n or not (0 < lcp_values <= n) or events <= 0:
+        f"{json.dumps(r['queries'])}")
+    if st["n"] != n or not (0 < st["lcp_values"] <= n) or st["events"] <= 0:
         raise AssertionError("implausible full-size result")
     if launches["rank_decode"] <= 0:
         raise AssertionError("rank_decode never launched on the main path")
@@ -298,24 +336,6 @@ def phase_full(results: dict, data_dir: str, log_dir: str) -> None:
     results["n"] = n
     results["full_out"] = out
     results["full_wall"] = wall
-    results["full_stats"] = dict(
-        leaves=leaves, nodes=nodes, lcp_values=lcp_values, n_min=n_min,
-        n_clusters=n_clusters, events=events, cluster_nr=clusters + 1)
-
-
-def phase_full_cpu(results: dict, data_dir: str) -> None:
-    """The full-size dataset through the plain PyTorch path on the CPU."""
-    out = os.path.join(data_dir, "full_cpu.snp")
-    t0 = time.perf_counter()
-    st = run_mode1(results["full_path"], out, "cpu")
-    log(f"[full-cpu] {time.perf_counter() - t0:.1f} s on the CPU")
-    if open(out, "rb").read() != open(results["full_out"], "rb").read():
-        raise AssertionError("full-size CPU .snp differs from the CUDA .snp")
-    for k, v in results["full_stats"].items():
-        if st[k] != v:
-            raise AssertionError(f"full size {k}: cpu {st[k]} != cuda {v}")
-    log(f"[full-cpu] .snp byte-identical to the CUDA run, stats equal: "
-        f"{', '.join(results['full_stats'])}")
 
 
 def phase_repeats(results: dict, data_dir: str, reps: int = 5,
@@ -380,22 +400,23 @@ def phase_profile(results: dict, data_dir: str, mode: int = 1) -> None:
         log(f"[profile] {ms:10.3f} ms  {100 * ms / busy:5.1f}%  {name[:110]}")
 
 
-def run_mode3(paths: dict, out: str, device: str):
+def run_mode3(paths: dict, out: str, device: str, packed=None):
     from ebwt2indel_torch.models import pipeline
     from ebwt2indel_torch.utils.config import Config
 
     return pipeline.run_two_datasets_da(
         Config(input1=paths["merged.ebwt"], input_da=paths["merged.da"],
-               output=out), log=lambda *a, **k: None, device=device)
+               output=out), log=lambda *a, **k: None, device=device,
+        packed=packed)
 
 
-def run_mode2(paths: dict, out: str, device: str):
+def run_mode2(paths: dict, out: str, device: str, packed=None):
     from ebwt2indel_torch.models import pipeline
     from ebwt2indel_torch.utils.config import Config
 
     return pipeline.run_two_datasets(
         Config(input1=paths["a.ebwt"], input2=paths["b.ebwt"], output=out),
-        log=lambda *a, **k: None, device=device)
+        log=lambda *a, **k: None, device=device, packed=packed)
 
 
 RUNS = {1: run_mode1, 2: run_mode2, 3: run_mode3}
@@ -449,34 +470,13 @@ def phase_pair_data(results: dict, data_dir: str) -> None:
 def phase_full_pair(results: dict, mode: int, data_dir: str,
                     log_dir: str) -> None:
     """Mode 3 or 2 at full size through ``cli.main`` on CUDA."""
-    import torch
-
-    from ebwt2indel_torch import cli
-    from ebwt2indel_torch.ops import rank_cuda
-
     paths = results["pair_paths"]
     args = (["-1", paths["a.ebwt"], "-2", paths["b.ebwt"]] if mode == 2
             else ["-1", paths["merged.ebwt"], "-d", paths["merged.da"]])
     out = os.path.join(data_dir, f"full_mode{mode}.snp")
-    os.makedirs(log_dir, exist_ok=True)
-    cli_log = os.path.join(log_dir, f"chip_smoke_cli_mode{mode}.log")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    buf = io.StringIO()
-    rank_cuda.reset_launches()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(args + ["-o", out], device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(rank_cuda.LAUNCHES)
-    queries = dict(rank_cuda.QUERIES)
-    peak = torch.cuda.max_memory_allocated()
-    text = buf.getvalue()
-    with open(cli_log, "w") as f:
-        f.write(text)
-    if rc != 0:
-        raise AssertionError(f"cli.main returned {rc} (see {cli_log})")
+    r = _cli_run(args + ["-o", out],
+                 os.path.join(log_dir, f"chip_smoke_cli_mode{mode}.log"))
+    wall, text, launches = r["wall"], r["text"], r["launches"]
     (t_index,) = _grab(r"done\. \[([0-9.]+)s\]", text)
     t_leaf, t_node = _grab(r"leaf phase ([0-9.]+)s, node phase ([0-9.]+)s",
                            text)
@@ -508,16 +508,132 @@ def phase_full_pair(results: dict, mode: int, data_dir: str,
         f"n_clusters {n_clusters}{extra}")
     log(f"[full] mode {mode}: {events} events; .snp sha256 "
         f"{hashlib.sha256(snp).hexdigest()}")
-    log(f"[full] mode {mode} torch.cuda.max_memory_allocated {peak} bytes")
+    log(f"[full] mode {mode} torch.cuda.max_memory_allocated {r['peak']} "
+        "bytes")
     log(f"[full] mode {mode} kernels {json.dumps(launches)}; queries "
-        f"{json.dumps(queries)}")
+        f"{json.dumps(r['queries'])}")
     n = os.path.getsize(paths["merged.ebwt"])
     if n_total != n or not (0 < lcp_values <= n) or events <= 0:
         raise AssertionError(f"implausible full-size mode-{mode} result")
     if launches["rank_decode"] <= 0:
         raise AssertionError(f"rank_decode never launched on mode {mode}")
     results[f"mode{mode}"] = {"full_path": paths, "full_out": out, "n": n,
-                              "full_wall": wall, "launches": launches}
+                              "full_wall": wall}
+
+
+def _measured_run(mode: int, inp, out: str, packed) -> dict:
+    """One CUDA run of a mode on a forced route, with the launch counts and
+    the peak memory reset just before and read just after."""
+    import torch
+
+    from ebwt2indel_torch.ops import rank_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rank_cuda.reset_launches()
+    t0 = time.perf_counter()
+    st = RUNS[mode](inp, out, "cuda", packed=packed)
+    torch.cuda.synchronize()
+    return {"wall": time.perf_counter() - t0, "stats": st,
+            "peak": torch.cuda.max_memory_allocated(),
+            "launches": rank_cuda.LAUNCHES["rank_decode"],
+            "queries": rank_cuda.QUERIES["rank_decode"],
+            "snp": open(out, "rb").read()}
+
+
+def _compare_routes(label: str, runs: dict, keys) -> None:
+    """The dense (False) and packed (True) runs wrote the same .snp, with
+    equal stats, and both launched the rank kernel."""
+    if runs[False]["snp"] != runs[True]["snp"]:
+        raise AssertionError(f"{label}: the packed .snp differs from the "
+                             "dense .snp")
+    for k in keys:
+        if runs[False]["stats"][k] != runs[True]["stats"][k]:
+            raise AssertionError(f"{label} {k}: dense "
+                                 f"{runs[False]['stats'][k]} != packed "
+                                 f"{runs[True]['stats'][k]}")
+    for packed, r in runs.items():
+        if r["launches"] <= 0:
+            raise AssertionError(f"{label}: rank_decode never launched on "
+                                 f"the {_ROUTE[packed]} route")
+
+
+_ROUTE = {False: "dense", True: "packed"}
+
+
+def _route_line(label: str, packed: bool, r: dict, n: int) -> None:
+    phases = ", ".join(f"{k} {v:.4f}" for k, v in r["stats"]["seconds"]
+                       .items())
+    log(f"[{label}] {_ROUTE[packed]}: wall {r['wall']:.4f} s "
+        f"({n / r['wall'] / 1e6:.3f} Mpos/s); phases: {phases}; peak "
+        f"{r['peak']} bytes ({r['peak'] / n:.3f} B/position); rank_decode "
+        f"{r['launches']} launches, {r['queries']} queries")
+
+
+def phase_packed_116m(results: dict, data_dir: str) -> None:
+    """Modes 1, 3 and 2 at full size on both routes: each .snp equals the
+    ``cli.main`` run's of the earlier phases."""
+    for mode in (1, 3, 2):
+        r = results if mode == 1 else results[f"mode{mode}"]
+        want = open(r["full_out"], "rb").read()
+        runs = {}
+        for packed in (False, True):
+            out = os.path.join(data_dir, f"full_mode{mode}_{_ROUTE[packed]}"
+                                         ".snp")
+            runs[packed] = _measured_run(mode, r["full_path"], out, packed)
+            if runs[packed]["snp"] != want:
+                raise AssertionError(f"mode {mode} {_ROUTE[packed]}: the "
+                                     ".snp differs from the cli.main run's")
+            _route_line(f"packed_116M mode {mode}", packed, runs[packed],
+                        r["n"])
+        keys = _COMPARED + (("da_values",) if mode == 2 else ())
+        _compare_routes(f"mode {mode}", runs, keys)
+        log(f"[packed_116M] mode {mode}: both routes' .snp byte-identical "
+            f"to the cli.main run's ({len(want)} bytes), stats equal: "
+            f"{', '.join(keys)}")
+
+
+def phase_scale_1g(data_dir: str, log_dir: str) -> None:
+    """Mode 1 at 1,050,398,182 positions: the default route through
+    ``cli.main``, then the other route through ``run_one_dataset``."""
+    from ebwt2indel_torch.models import traverse
+    from ebwt2indel_torch.tools import genhuge
+
+    path = os.path.join(data_dir, "huge_1g.ebwt")
+    if not os.path.isfile(path):
+        t0 = time.perf_counter()
+        genhuge.build(HUGE_GENOME_LEN, path, COVERAGE, READ_LEN, log=log)
+        log(f"[scale_1G] set-up: genhuge built {path} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    n = os.path.getsize(path)
+    log(f"[scale_1G] {n} positions (the recipe's: {HUGE_N})")
+    if n != HUGE_N:
+        raise AssertionError(f"genhuge wrote {n} positions, not {HUGE_N}")
+    default = n >= traverse.LEAN_N
+    out = os.path.join(data_dir, "huge_1g_default.snp")
+    r = _cli_run(["-1", path, "-o", out],
+                 os.path.join(log_dir, "chip_smoke_cli_1g.log"))
+    runs = {default: {"wall": r["wall"], "stats": _mode1_log(r["text"]),
+                      "peak": r["peak"],
+                      "launches": r["launches"]["rank_decode"],
+                      "queries": r["queries"]["rank_decode"],
+                      "snp": open(out, "rb").read()}}
+    _route_line("scale_1G cli.main", default, runs[default], n)
+    runs[not default] = _measured_run(
+        1, path, os.path.join(data_dir, "huge_1g_other.snp"), not default)
+    _route_line("scale_1G", not default, runs[not default], n)
+    _compare_routes("1.05G mode 1", runs, _COMPARED)
+    if runs[True]["stats"]["events"] <= 0:
+        raise AssertionError("the 1.05G input gave no events")
+    log(f"[scale_1G] both routes' .snp byte-identical "
+        f"({len(runs[True]['snp'])} bytes, sha256 "
+        f"{hashlib.sha256(runs[True]['snp']).hexdigest()}), stats equal: "
+        f"{', '.join(_COMPARED)}")
+    per_pos = runs[True]["peak"] / n
+    if per_pos > PACKED_MAX_BYTES_PER_POS:
+        raise AssertionError(f"the packed route peaked at {per_pos:.3f} "
+                             f"bytes per position, over "
+                             f"{PACKED_MAX_BYTES_PER_POS}")
 
 
 def phase_kernel_at_main_shape(results: dict) -> dict:
@@ -612,10 +728,11 @@ def main() -> int:
     if not failures:
         phase("kernel_vs_plain", phase_kernel_vs_plain)
         phase("cuda_vs_cpu", phase_cuda_vs_cpu, data_dir)
+        phase("mode1_cuda_vs_cpu_29M", phase_cuda_vs_cpu, data_dir,
+              CPU_GENOME_LEN, SEED, COVERAGE)
         phase("full_mode1", phase_full, results, data_dir,
               os.path.join(here, args.log_dir))
         if "launches" in results:
-            phase("full_mode1_cpu", phase_full_cpu, results, data_dir)
             k = phase("kernel_at_main_shape", phase_kernel_at_main_shape,
                       results)
             if k:
@@ -634,6 +751,10 @@ def main() -> int:
                           data_dir, 3, mode)
                     phase(f"profile_mode{mode}", phase_profile, results,
                           data_dir, mode)
+        if all(k in results for k in ("launches", "mode3", "mode2")):
+            phase("packed_116M", phase_packed_116m, results, data_dir)
+        phase("scale_mode1_1G", phase_scale_1g, data_dir,
+              os.path.join(here, args.log_dir))
     log(f"[done] {time.perf_counter() - t0:.1f} s; failed phases: "
         f"{failures or 'none'}")
     if failures or not kernels:

@@ -20,8 +20,12 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import rank
 from . import fm_index as fm_ops
 from .fm_index import FMIndex
+
+_LOW32 = 0xFFFFFFFF
+_NO_BIT = 1 << 30  # "no set bit" sentinel above every in-block offset
 
 
 def range_counts(fm: FMIndex, begins: torch.Tensor, ends: torch.Tensor):
@@ -96,10 +100,46 @@ def next_set_table(thr_R: torch.Tensor) -> torch.Tensor:
     return torch.cummin(idx.flip(0), dim=0).values.flip(0)
 
 
-def first_thr_position_device(next_set: torch.Tensor, begins: torch.Tensor,
+def _lowest_bit(w: torch.Tensor) -> torch.Tensor:
+    """Index of the lowest set bit of int64 words in [0, 2^32), _NO_BIT
+    where a word is 0."""
+    low = w & -w
+    return torch.where(w != 0, rank.popcount32(low - 1), _NO_BIT)
+
+
+def _anchor_from_words(words: torch.Tensor, n: int):
+    """The bit-packed route's right-context anchor structure (words, T)
+    from its thr_R words (``ops/bits.py`` layout; call.py:187, :214):
+    T[b] = the first set position >= 128 * b (n if none), nb + 1 entries
+    with T[nb] = n. The reverse cumulative minimum runs over the nb block
+    entries, not over n positions."""
+    w = words.to(torch.int64) & _LOW32
+    slot = torch.arange(0, 128, 32, device=w.device)  # bit 0 of each word
+    first = (_lowest_bit(w).view(-1, 4) + slot).min(1).values
+    nb = first.shape[0]
+    blk = torch.where(first < 128,
+                      torch.arange(nb, device=w.device) * 128 + first, n)
+    T = torch.cummin(blk.flip(0), 0).values.flip(0)
+    return words, torch.cat([T, T.new_full((1,), n)])
+
+
+def first_thr_position_device(next_set, begins: torch.Tensor,
                               ends: torch.Tensor):
     """For each cluster the first position in [begin, end) with thr_R set
-    (the right-context anchor, cpp:979-985): returns (pos, found)."""
-    pos = next_set[begins.clamp(0, next_set.shape[0] - 1)]
+    (the right-context anchor, cpp:979-985): returns (pos, found).
+    ``next_set`` is the dense route's ``next_set_table`` or the packed
+    route's (words, T); with (words, T) it is one word-row gather, the
+    lowest set bit at or after the in-block offset, else T[b + 1]
+    (call.py:229-249)."""
+    if isinstance(next_set, tuple):
+        words, T = next_set
+        b = begins >> 7
+        slot = torch.arange(0, 128, 32, device=begins.device)
+        start = ((begins & 127)[:, None] - slot).clamp(0, 32)
+        m = rank._bv_row(words, b) & ~((1 << start) - 1)
+        off = (_lowest_bit(m) + slot).min(1).values
+        pos = torch.where(off < 128, b * 128 + off, T[b + 1])
+    else:
+        pos = next_set[begins.clamp(0, next_set.shape[0] - 1)]
     found = pos < ends
     return torch.where(found, pos, 0), found

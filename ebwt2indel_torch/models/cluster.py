@@ -10,6 +10,9 @@ LCP_minima[i]`` holds and closes it where that fails. Quirks kept:
 * the histogram records closed clusters of any length
   (CLUST_SIZES[len] += len for len <= 200), while only clusters with
   len >= 2*mcov_out are analyzed, in position order.
+
+``find_clusters_device`` reads the dense route's (n,) uint8 flags and
+``find_clusters_device_packed`` the bit-packed route's words.
 """
 
 from __future__ import annotations
@@ -19,7 +22,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops import bits
+from . import traverse
+
 MAX_CLUST_LEN = 200  # histogram cap (ebwt2InDel.cpp:1388)
+_LOW32 = 0xFFFFFFFF
 
 
 @dataclasses.dataclass
@@ -92,9 +99,17 @@ def find_clusters_device(thr_K: torch.Tensor, minima: torch.Tensor,
     end_at = mask & ~nxt
     end_at[-1:] = False  # a run reaching n-1 never closes (cluster.py:95)
     ends = torch.nonzero(end_at).flatten() + 1
-    # runs are disjoint, so the k-th start pairs with the k-th end; an
-    # unclosed trailing start has no end and drops out
-    starts = torch.nonzero(is_start).flatten()[: ends.shape[0]]
+    return _runs_to_clusters(torch.nonzero(is_start).flatten(), ends,
+                             mcov_out)
+
+
+def _runs_to_clusters(starts: torch.Tensor, ends: torch.Tensor,
+                      mcov_out: int) -> Clusters:
+    """Clusters from the run starts and (exclusive) ends in position order
+    (runs_to_clusters, cluster.py:108): runs are disjoint, so the k-th
+    start pairs with the k-th end, and an unclosed trailing start has no
+    end and drops out."""
+    starts = starts[: ends.shape[0]]
     lens = ends - starts
 
     small = lens[lens <= MAX_CLUST_LEN]
@@ -110,3 +125,45 @@ def find_clusters_device(thr_K: torch.Tensor, minima: torch.Tensor,
         n_closed=int(ends.shape[0]),
         hist=hist.cpu().numpy(),
     )
+
+
+def _run_bits_packed(thrK_w: torch.Tensor, min_w: torch.Tensor, lo: int,
+                     hi: int, n: int):
+    """Run-start and run-end bits of words [lo, hi) of the cluster mask
+    thr_K & ~minima (_mask_and_counts_packed, cluster.py:258), as int64
+    words in [0, 2^32): start bit p = mask[p] & ~mask[p-1], end bit
+    p = mask[p-1] & ~mask[p], the run's exclusive end. Bit 31 of word lo-1
+    carries mask[32*lo - 1] in. The end bit at position n is cleared: a
+    run reaching n-1 never closes (cluster.py:269-274)."""
+    a = max(lo - 1, 0)
+    mw = (thrK_w[a:hi] & ~min_w[a:hi]).to(torch.int64) & _LOW32
+    if lo == 0:
+        mw = torch.cat([mw.new_zeros(1), mw])
+    shifted = ((mw[1:] << 1) & _LOW32) | (mw[:-1] >> 31)
+    mw = mw[1:]
+    start = mw & ~shifted
+    end = ~mw & shifted
+    if 32 * lo <= n < 32 * hi:
+        end[n // 32 - lo] &= ~(1 << (n & 31))
+    return start, end
+
+
+def find_clusters_device_packed(thrK_w: torch.Tensor, min_w: torch.Tensor,
+                                *, n: int, mcov_out: int,
+                                slice_len: int | None = None) -> Clusters:
+    """``find_clusters_device`` over the bit-packed route's thr_K and minima
+    words (find_clusters_device_packed, cluster.py:341): slice by slice
+    (``slice_len`` positions, a multiple of 32, ``traverse.LEAN_SLICE`` by
+    default), the start and end bits are unpacked and their positions taken
+    with ``torch.nonzero``; then the runs pair up as in the dense route. No
+    n-sized vector is made; each slice syncs once per ``nonzero``."""
+    L = traverse._slice_len(slice_len)
+    n_words = -(-n // 32)  # every mark lies at a position < n
+    starts, ends = [], []
+    for lo in range(0, n_words, L // 32):
+        hi = min(lo + L // 32, n_words)
+        s, e = _run_bits_packed(thrK_w, min_w, lo, hi, n)
+        for out, w in ((starts, s), (ends, e)):
+            out.append(torch.nonzero(bits.unpack_bits(w, 32 * (hi - lo)))
+                       .flatten() + 32 * lo)
+    return _runs_to_clusters(torch.cat(starts), torch.cat(ends), mcov_out)

@@ -50,8 +50,9 @@ class FMIndex:
         # torch.tensor copies: the arrays may be read-only views (JAX's)
         return FMIndex(
             blocks=torch.tensor(blocks.view(np.int32), device=dev),
-            block_counts=torch.tensor(np.asarray(block_counts),
-                                      dtype=torch.int64, device=dev),
+            # 32-bit counters are uint32 patterns: widen them unsigned
+            block_counts=torch.tensor(packing.widen_u32(block_counts),
+                                      device=dev),
             F=torch.tensor(np.asarray(F), dtype=torch.int64, device=dev),
             n=int(n), term=int(term), device=dev,
         )

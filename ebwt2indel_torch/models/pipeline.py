@@ -55,10 +55,25 @@ def _decode_rows(codes: np.ndarray, term: int):
     return dna.decode_table(term)[codes.astype(np.uint8)]
 
 
-def run_one_dataset(cfg: Config, log=_log, device="cuda") -> dict:
-    """Mode 1 on ``device``. Returns the JAX package's stats (events,
-    cluster_nr, traversal counts, n_clusters) plus ``seconds``: the wall
-    time of each phase, each ended by a device synchronise."""
+def _anchor_and_clusters(res: traverse.TraversalResult, n: int,
+                         mcov_out: int):
+    """The right-context anchor structure and the clusters, from either
+    route's flags (pipeline.py:132-142 of the JAX package)."""
+    if res.packed:
+        return (call._anchor_from_words(res.thr_R, n),
+                cluster.find_clusters_device_packed(
+                    res.thr_K, res.minima, n=n, mcov_out=mcov_out))
+    return (call.next_set_table(res.thr_R),
+            cluster.find_clusters_device(res.thr_K, res.minima, mcov_out))
+
+
+def run_one_dataset(cfg: Config, log=_log, device="cuda",
+                    packed: bool | None = None) -> dict:
+    """Mode 1 on ``device``. ``packed`` chooses the traversal's route
+    (``traverse.navigate_one_bwt``; None: by ``traverse.LEAN_N``). Returns
+    the JAX package's stats (events, cluster_nr, traversal counts,
+    n_clusters) plus ``seconds``: the wall time of each phase, each ended
+    by a device synchronise."""
     dev = device_mod.resolve(device)
     cfg = cfg.resolved()
     seconds = {}
@@ -71,7 +86,7 @@ def run_one_dataset(cfg: Config, log=_log, device="cuda") -> dict:
     log(f"done. [{t1 - t0:.2f}s]")
 
     log("\nPhase 2-3/4: suffix-tree wavefront navigation.")
-    res = traverse.navigate_one_bwt(fm, cfg.K, cfg.k_right)
+    res = traverse.navigate_one_bwt(fm, cfg.K, cfg.k_right, packed)
     t2 = time.perf_counter()
     st = res.stats
     seconds["leaf_phase"] = st.pop("leaf_seconds")
@@ -86,8 +101,7 @@ def run_one_dataset(cfg: Config, log=_log, device="cuda") -> dict:
 
     log("Phase 4/4: detecting SNPs and indels.")
     log(f"Output events will be stored in {cfg.output}")
-    next_thr = call.next_set_table(res.thr_R)
-    cl = cluster.find_clusters_device(res.thr_K, res.minima, cfg.mcov_out)
+    next_thr, cl = _anchor_and_clusters(res, fm.n, cfg.mcov_out)
     del res
     device_mod.synchronize(dev)
     t4 = time.perf_counter()
@@ -190,10 +204,12 @@ def _pair_passes(quirk0: torch.Tensor, quirk1: torch.Tensor,
     return passes & ~same_single
 
 
-def run_two_datasets(cfg: Config, log=_log, device="cuda") -> dict:
+def run_two_datasets(cfg: Config, log=_log, device="cuda",
+                     packed: bool | None = None) -> dict:
     """Mode 2 on ``device``: two eBWTs (``-1``, ``-2``) merged implicitly by
-    the lockstep traversal. Returns the JAX package's stats (with
-    ``da_values``) plus ``seconds``, the wall time of each phase."""
+    the lockstep traversal. ``packed`` as in ``run_one_dataset``, over the
+    merged n. Returns the JAX package's stats (with ``da_values``) plus
+    ``seconds``, the wall time of each phase."""
     dev = device_mod.resolve(device)
     cfg = cfg.resolved()
     seconds = {}
@@ -208,7 +224,7 @@ def run_two_datasets(cfg: Config, log=_log, device="cuda") -> dict:
     log(f"done. [{t1 - t0:.2f}s]")
 
     log("\nPhase 2-3/4: merged suffix-tree wavefront navigation.")
-    res = traverse.navigate_two_bwts(fm1, fm2, cfg.K, cfg.k_right)
+    res = traverse.navigate_two_bwts(fm1, fm2, cfg.K, cfg.k_right, packed)
     t2 = time.perf_counter()
     st = res.stats
     seconds["leaf_phase"] = st.pop("leaf_seconds")
@@ -224,11 +240,12 @@ def run_two_datasets(cfg: Config, log=_log, device="cuda") -> dict:
 
     log("Phase 4/4: detecting SNPs and indels.")
     log(f"Output events will be stored in {cfg.output}")
-    next_thr = call.next_set_table(res.thr_R)
-    cl = cluster.find_clusters_device(res.thr_K, res.minima, cfg.mcov_out)
+    next_thr, cl = _anchor_and_clusters(res, n, cfg.mcov_out)
     # the DA stays on the device as a rank structure (the reference scans
-    # its vector<bool> DA, cpp:1431-1432)
-    da_bv = bits.bv_build(res.da)
+    # its vector<bool> DA, cpp:1431-1432); the packed route's DA is already
+    # words in its layout (pipeline.py:276-277)
+    da_bv = ((res.da, bits.bv_counts(res.da)) if res.packed
+             else bits.bv_build(res.da))
     del res
     device_mod.synchronize(dev)
     t4 = time.perf_counter()
@@ -299,10 +316,11 @@ def _call_and_emit_pair_mode2(fm1: FMIndex, fm2: FMIndex,
         )
 
 
-def run_two_datasets_da(cfg: Config, log=_log, device="cuda") -> dict:
+def run_two_datasets_da(cfg: Config, log=_log, device="cuda",
+                        packed: bool | None = None) -> dict:
     """Mode 3 on ``device``: one merged eBWT (``-1``) and its document array
-    (``-d``). The traversal is mode 1's. Returns the JAX package's stats
-    plus ``seconds``, the wall time of each phase."""
+    (``-d``). The traversal is mode 1's, and so is ``packed``. Returns the
+    JAX package's stats plus ``seconds``, the wall time of each phase."""
     dev = device_mod.resolve(device)
     cfg = cfg.resolved()
     seconds = {}
@@ -334,7 +352,7 @@ def run_two_datasets_da(cfg: Config, log=_log, device="cuda") -> dict:
         log(f"done. [{t1 - t0:.2f}s]")
 
         log("\nPhase 2-3/4: suffix-tree wavefront navigation.")
-        res = traverse.navigate_one_bwt(fm, cfg.K, cfg.k_right)
+        res = traverse.navigate_one_bwt(fm, cfg.K, cfg.k_right, packed)
         st = res.stats
         seconds["leaf_phase"] = st.pop("leaf_seconds")
         seconds["node_phase"] = st.pop("node_seconds")
@@ -352,8 +370,7 @@ def run_two_datasets_da(cfg: Config, log=_log, device="cuda") -> dict:
     seconds["da_wait"] = t3 - t2
     log(f"[timing] DA-side index wait {t3 - t2:.2f}s")
 
-    next_thr = call.next_set_table(res.thr_R)
-    cl = cluster.find_clusters_device(res.thr_K, res.minima, cfg.mcov_out)
+    next_thr, cl = _anchor_and_clusters(res, fm.n, cfg.mcov_out)
     del res
     device_mod.synchronize(dev)
     t4 = time.perf_counter()

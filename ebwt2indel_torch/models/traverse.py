@@ -17,6 +17,16 @@ step on them, and queues the surviving children.
 * After both phases: a prefix sum of the deltas gives the leaf-interior
   fills, and thr_K = flag bit 1 | fill_K, thr_R = bit 2 | fill_R.
 
+Two routes give the same flags (``packed=`` of the navigate functions):
+
+* dense, below ``LEAN_N`` positions: each result is an (n,) uint8 vector;
+* bit-packed (``navigate_one_bwt``'s ``huge`` branch, traverse.py:1511-1582
+  of the JAX package): the prefix sums run slice by slice with a running
+  carry and come out as packed words, each delta vector freed as soon as its
+  fill is packed, and every result is words in the ``ops/bits.py`` layout.
+  Peak memory is the leaf phase's int32 delta vectors, not the n-sized int64
+  temporaries of the dense calling passes.
+
 Mode 2 walks the suffix trees of two indexes in lockstep
 (``navigate_two_bwts``; reference ebwt2InDel.cpp:679-831): a row holds the
 node's boundaries in both, and the merged collection's are their sums. The
@@ -33,22 +43,37 @@ import time
 import torch
 
 from ..device import synchronize
+from ..ops import bits
 from . import fm_index as fm_ops
 from .fm_index import FMIndex
 
 CHUNK = 256 * 1024  # rows popped per step (traverse.py:39)
 
+# The route switch (the JAX package's _LEAN_N = 2**27, traverse.py:1221, was
+# sized for a 16 GB TPU). On an 80 GB H100 the dense route peaked at 35.75 B
+# per position: 4,152,354,816 B at 116,149,697 positions and
+# 37,552,146,432 B at 1,050,398,182. At 2**30 positions that is 38.4 GB,
+# under half the card; at 2**31 it would be 76.8 GB, past what the card
+# leaves free. So inputs from 2**30 positions on take the bit-packed route
+# (9.09 B per position at 1,050,398,182).
+LEAN_N = 2**30
+# positions per slice of the packed route's passes (traverse.py:1222)
+LEAN_SLICE = 2**24
+
 
 @dataclasses.dataclass
 class TraversalResult:
     """Flag vectors + diagnostics (the reference's globals LCP_threshold /
-    LCP_minima, ebwt2InDel.cpp:56-58)."""
+    LCP_minima, ebwt2InDel.cpp:56-58). With ``packed`` each flag vector is
+    instead (4 * (n // 128 + 1),) int32 words in the ``ops/bits.py``
+    layout, pad bits 0."""
 
     thr_K: torch.Tensor  # (n,) uint8 — LCP_threshold[2i]   (LCP[i] >= K)
     thr_R: torch.Tensor  # (n,) uint8 — LCP_threshold[2i+1] (LCP[i] >= k_right)
     minima: torch.Tensor  # (n,) uint8
     stats: dict
     da: torch.Tensor | None = None  # (n,) uint8, 1 = collection 2 (mode 2)
+    packed: bool = False
 
 
 def _char_major(children: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -215,22 +240,99 @@ def _run_phase(init: torch.Tensor, step) -> int:
     return max_pending
 
 
-def navigate_one_bwt(fm: FMIndex, K: int, k_right: int) -> TraversalResult:
+def _slice_len(slice_len: int | None) -> int:
+    L = LEAN_SLICE if slice_len is None else slice_len
+    if L <= 0 or L % 32:
+        raise ValueError(f"slice length {L} is not a positive multiple of 32")
+    return L
+
+
+def _n_words(n: int) -> int:
+    """Words of an n-position packed vector: n // 128 + 1 blocks of 4."""
+    return bits.WPB * (n // bits.BLOCK + 1)
+
+
+def _fills_packed(difs: list, n: int,
+                  slice_len: int | None = None) -> list[torch.Tensor]:
+    """Bit-packed fills of int32 delta vectors (traverse.py:1248-1318 of the
+    JAX package): the prefix sum of each vector over [0, n), slice by slice
+    with a running int32 carry, is > 0 exactly on its fill. Each comes out
+    as packed words (``_n_words(n)``, pad bits 0).
+
+    ``difs`` is emptied: each vector is dropped as soon as its fill is
+    packed, so at most one slice's sum lives beside the vectors.
+    ``slice_len`` (a multiple of 32) defaults to ``LEAN_SLICE``."""
+    L = _slice_len(slice_len)
+    fills = []
+    while difs:
+        d = difs.pop(0)
+        words = torch.zeros(_n_words(n), dtype=torch.int32, device=d.device)
+        carry = torch.zeros((), dtype=torch.int32, device=d.device)
+        for lo in range(0, n, L):
+            cs = torch.cumsum(d[lo:min(lo + L, n)], 0,
+                              dtype=torch.int32) + carry
+            carry = cs[-1]
+            w = bits.pack_bits(cs > 0)
+            words[lo // 32:lo // 32 + w.shape[0]] = w
+        del d
+        fills.append(words)
+    return fills
+
+
+def _combine_packed(flags: torch.Tensor, fills: list, n: int,
+                    slice_len: int | None = None) -> list[torch.Tensor]:
+    """Packed thr_K = (flags & 1) | fill_K, thr_R = (flags & 2) | fill_R,
+    minima = flags & 4 and, with a third fill, da = (flags & 8) | fill_D
+    (traverse.py:1424-1490), slice by slice from the (n,) uint8 node flags.
+    The flag bits are packed and OR-ed into the fill words in place."""
+    L = _slice_len(slice_len)
+    outs = [fills[0], fills[1], torch.zeros_like(fills[0]), *fills[2:]]
+    for lo in range(0, n, L):
+        f = flags[lo:lo + L]
+        for bit, out in zip((1, 2, 4, 8), outs):
+            w = bits.pack_bits((f & bit) != 0)
+            out[lo // 32:lo // 32 + w.shape[0]] |= w
+    return outs
+
+
+def _fills_dense(difs: list, n: int) -> list[torch.Tensor]:
+    """The dense route's fills, (n,) bool each; ``difs`` is emptied."""
+    fills = [torch.cumsum(d[:n], 0, dtype=torch.int32) > 0 for d in difs]
+    difs.clear()
+    return fills
+
+
+def _combine_dense(flags: torch.Tensor, fills: list) -> list[torch.Tensor]:
+    """The dense route's thr_K, thr_R, minima (and da) as (n,) uint8."""
+    outs = [((flags & 1).bool() | fills[0]).to(torch.uint8),
+            ((flags & 2).bool() | fills[1]).to(torch.uint8),
+            (flags >> 2) & 1]
+    if len(fills) == 3:
+        outs.append(((flags & 8).bool() | fills[2]).to(torch.uint8))
+    return outs
+
+
+def navigate_one_bwt(fm: FMIndex, K: int, k_right: int,
+                     packed: bool | None = None,
+                     slice_len: int | None = None) -> TraversalResult:
     """Single-BWT navigation (reference navigate_one_bwt,
     ebwt2InDel.cpp:555-676): the leaf phase, then the node phase.
-    ``stats`` carries the counts of the JAX package plus the seconds of each
-    phase (``leaf_seconds``, ``node_seconds``)."""
+    ``packed=None`` takes the bit-packed route from ``LEAN_N`` positions on;
+    True or False forces a route. ``stats`` carries the counts of the JAX
+    package plus the seconds of each phase (``leaf_seconds``,
+    ``node_seconds``)."""
     n, dev = fm.n, fm.device
+    if packed is None:
+        packed = n >= LEAN_N
     t0 = time.perf_counter()
-    difs = (torch.zeros(n + 1, dtype=torch.int32, device=dev),
-            torch.zeros(n + 1, dtype=torch.int32, device=dev))
+    difs = [torch.zeros(n + 1, dtype=torch.int32, device=dev)
+            for _ in range(2)]  # K, R
     st_l = torch.zeros(2, dtype=torch.int64, device=dev)  # leaves, lcp
     maxp_l = _run_phase(
         fm.first_leaf()[None, :],
         lambda c: _leaf_body(fm, c, difs, st_l, K, k_right))
-    fill_K, fill_R = (torch.cumsum(d[:n], 0, dtype=torch.int32) > 0
-                      for d in difs)
-    del difs
+    fills = (_fills_packed(difs, n, slice_len) if packed
+             else _fills_dense(difs, n))
     synchronize(dev)
     t1 = time.perf_counter()
 
@@ -239,9 +341,9 @@ def navigate_one_bwt(fm: FMIndex, K: int, k_right: int) -> TraversalResult:
     maxp_n = _run_phase(
         fm.root()[None, :],
         lambda c: _node_body(fm, c, flags, st_n, K, k_right))
-    thr_K = ((flags & 1).bool() | fill_K).to(torch.uint8)
-    thr_R = ((flags & 2).bool() | fill_R).to(torch.uint8)
-    minima = (flags >> 2) & 1
+    thr_K, thr_R, minima = (_combine_packed(flags, fills, n, slice_len)
+                            if packed else _combine_dense(flags, fills))
+    del flags, fills
     synchronize(dev)
     t2 = time.perf_counter()
 
@@ -252,28 +354,31 @@ def navigate_one_bwt(fm: FMIndex, K: int, k_right: int) -> TraversalResult:
         "leaf_seconds": t1 - t0, "node_seconds": t2 - t1,
     }
     return TraversalResult(thr_K=thr_K, thr_R=thr_R, minima=minima,
-                           stats=stats)
+                           stats=stats, packed=packed)
 
 
-def navigate_two_bwts(fm1: FMIndex, fm2: FMIndex, K: int,
-                      k_right: int) -> TraversalResult:
+def navigate_two_bwts(fm1: FMIndex, fm2: FMIndex, K: int, k_right: int,
+                      packed: bool | None = None,
+                      slice_len: int | None = None) -> TraversalResult:
     """Lockstep navigation of two suffix trees that simulates the merged
     collection (reference navigate_two_bwts, ebwt2InDel.cpp:679-831): the
     leaf-pair phase, then the node-pair phase, over n = n1 + n2 merged
-    positions. ``da`` is the merged document array. ``stats`` adds
+    positions. ``da`` is the merged document array. ``packed`` chooses the
+    route as in ``navigate_one_bwt``, over the merged n. ``stats`` adds
     ``da_values`` to the counts of ``navigate_one_bwt``."""
     n, dev = fm1.n + fm2.n, fm1.device
+    if packed is None:
+        packed = n >= LEAN_N
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
     t0 = time.perf_counter()
-    difs = tuple(torch.zeros(n + 1, dtype=torch.int32, device=dev)
-                 for _ in range(3))  # K, R, DA
+    difs = [torch.zeros(n + 1, dtype=torch.int32, device=dev)
+            for _ in range(3)]  # K, R, DA
     st_l = torch.zeros(3, dtype=torch.int64, device=dev)  # leaves, lcp, da
     maxp_l = _run_phase(
         torch.cat([fm1.first_leaf()[:2], fm2.first_leaf()[:2], zero])[None],
         lambda c: _leaf_pair_body(fm1, fm2, c, difs, st_l, K, k_right))
-    fill_K, fill_R, fill_D = (torch.cumsum(d[:n], 0, dtype=torch.int32) > 0
-                              for d in difs)
-    del difs
+    fills = (_fills_packed(difs, n, slice_len) if packed
+             else _fills_dense(difs, n))
     synchronize(dev)
     t1 = time.perf_counter()
 
@@ -283,10 +388,9 @@ def navigate_two_bwts(fm1: FMIndex, fm2: FMIndex, K: int,
     maxp_n = _run_phase(
         torch.cat([fm1.root()[:6], fm2.root()[:6], zero])[None],
         lambda c: _node_pair_body(fm1, fm2, c, flags, st_n, K, k_right))
-    thr_K = ((flags & 1).bool() | fill_K).to(torch.uint8)
-    thr_R = ((flags & 2).bool() | fill_R).to(torch.uint8)
-    minima = (flags >> 2) & 1
-    da = ((flags & 8).bool() | fill_D).to(torch.uint8)
+    thr_K, thr_R, minima, da = (_combine_packed(flags, fills, n, slice_len)
+                                if packed else _combine_dense(flags, fills))
+    del flags, fills
     synchronize(dev)
     t2 = time.perf_counter()
 
@@ -298,4 +402,4 @@ def navigate_two_bwts(fm1: FMIndex, fm2: FMIndex, K: int,
         "leaf_seconds": t1 - t0, "node_seconds": t2 - t1,
     }
     return TraversalResult(thr_K=thr_K, thr_R=thr_R, minima=minima,
-                           stats=stats, da=da)
+                           stats=stats, da=da, packed=packed)

@@ -121,6 +121,17 @@ def pack_codes(codes: np.ndarray, term: int = dna.DEFAULT_TERM) -> PackedBwt:
     )
 
 
+def widen_u32(x) -> np.ndarray:
+    """int64 copy of an integer array whose 32-bit entries are uint32 bit
+    patterns (``pack_codes``' block counters, ``pack_bitvector``'s
+    counts): they widen unsigned, so a count at or past 2^31 stays
+    positive."""
+    x = np.asarray(x)
+    if x.dtype.itemsize == 4:
+        return x.astype(np.int64) & 0xFFFFFFFF
+    return x.astype(np.int64)
+
+
 def ascii_to_codes(raw: np.ndarray, term: int = dna.DEFAULT_TERM) -> np.ndarray:
     """ASCII bytes -> codes, validating the alphabet with the reference's
     message (internal/dna_string.hpp:76-105)."""

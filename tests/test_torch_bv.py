@@ -93,3 +93,17 @@ def test_read_da_file_and_from_numpy(tmp_path):
     assert got.tolist() == [0, 1, 1, 0, 1, 0, 0, 1]
     with pytest.raises(ValueError):
         bits.from_numpy(np.zeros((2, 4), np.uint32), np.zeros(2), "cpu")
+
+
+def test_from_numpy_counts_past_2_31_widen_unsigned():
+    """bits.from_numpy reads 32-bit counts as uint32 patterns: counts
+    shifted past 2^31 rank as the unshifted ones offset by the shift."""
+    off = 2**31 + 12345
+    b = _bits(1000)
+    words, counts = packing.pack_bitvector(b)
+    big = (counts + np.int64(off)).astype(np.uint32).view(np.int32)
+    w, c = bits.from_numpy(words, big, device="cpu")
+    assert c.dtype == torch.int64 and c.min() >= off
+    i = torch.arange(1001)
+    want = rank.bv_rank1(*bits.from_numpy(words, counts, device="cpu"), i)
+    assert torch.equal(rank.bv_rank1(w, c, i), want + off)

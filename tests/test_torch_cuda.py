@@ -1,6 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA rank kernel against
-its plain PyTorch version, and modes 1, 2 and 3 on the card against the same
-mode on the CPU.
+its plain PyTorch version, modes 1, 2 and 3 on the card against the same
+mode on the CPU, and the bit-packed route against the dense route.
 A CUDA kernel has no CPU mode, so without a card these skip. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from ebwt2indel_torch.models import pipeline
+from ebwt2indel_torch.models import pipeline, traverse
 from ebwt2indel_torch.ops import packing, rank, rank_cuda
-from ebwt2indel_torch.tools import ebwt, simulate
+from ebwt2indel_torch.tools import ebwt, genhuge, simulate
 from ebwt2indel_torch.utils.config import Config
 
 pytestmark = pytest.mark.cuda
@@ -108,3 +108,25 @@ def test_mode2_cuda_matches_cpu(tmp_path, rng):
                                          input2=str(tmp_path / "b.ebwt"),
                                          output=out), tmp_path)
     assert st["cuda"]["da_values"] == st["cpu"]["da_values"]
+
+
+def test_mode1_packed_matches_dense_on_card(tmp_path, monkeypatch):
+    """At 4M positions the bit-packed route writes the dense route's .snp
+    on the card, with the stats equal; slices of 2^20 positions make its
+    passes cross slice boundaries."""
+    _needs_cuda()
+    path = tmp_path / "r.ebwt"
+    n = genhuge.build(200_000, str(path), coverage=20, log=lambda *a: None)
+    assert n > 4_000_000
+    monkeypatch.setattr(traverse, "LEAN_SLICE", 1 << 20)
+    outs, stats = {}, {}
+    for packed in (True, False):
+        out = tmp_path / f"{packed}.snp"
+        stats[packed] = pipeline.run_one_dataset(
+            Config(input1=str(path), output=str(out)),
+            log=lambda *a, **k: None, device="cuda", packed=packed)
+        outs[packed] = out.read_bytes()
+    assert outs[True] == outs[False] and outs[True]
+    for k in ("leaves", "nodes", "lcp_values", "n_min", "n_clusters",
+              "events", "cluster_nr"):
+        assert stats[True][k] == stats[False][k], k

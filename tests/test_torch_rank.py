@@ -3,6 +3,8 @@ the JAX package (ebwt2indel_tpu/ops/rank.py), its Pallas rank kernel run in
 interpret mode, and the numpy oracles. Integer results must be equal
 (tolerance 0). The CUDA kernel's own tests are in test_torch_cuda.py."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ import torch
 from ebwt2indel_tpu.ops import packing as jpacking
 from ebwt2indel_tpu.ops import rank as jrank
 from ebwt2indel_tpu.ops import rank_pallas
+from ebwt2indel_torch.models.fm_index import FMIndex
 from ebwt2indel_torch.ops import packing, rank, rank_cuda
 from tests import oracle
 from tests.test_rank import random_codes
@@ -107,3 +110,45 @@ def test_parallel_rank_refuses_mixed_devices(rng):
     with pytest.raises(ValueError):
         rank_cuda.rank_decode(blocks, torch.zeros(3, dtype=torch.int64))
 
+
+
+def test_counters_past_2_31_widen_unsigned(rng):
+    """The 32-bit block counters are uint32 patterns, and a counter at or
+    past 2^31 is reachable below the packer's CAP (a merged input whose
+    second collection passes 2^31 positions). Shifted by 2^31 + 12345, in
+    block words 12-15 and in block_counts alike, the plain rank and select
+    answer the unshifted question offset by the same constant, and select
+    agrees with JAX's, which compares unsigned (rank.py:348)."""
+    off = 2**31 + 12345
+    n = 3000
+    codes = random_codes(rng, n, p_term=0.1)
+    pb = packing.pack_codes(codes)
+    big = dataclasses.replace(
+        pb, blocks=pb.blocks.copy(),
+        block_counts=(pb.block_counts + np.int64(off)).astype(np.uint32)
+        .view(np.int32))
+    big.blocks[:, 12:16] += np.uint32(off)
+    base = FMIndex.from_packed(pb, device="cpu")
+    fm = FMIndex.from_packed(big, device="cpu")
+    assert fm.block_counts.min() >= off
+
+    qs = torch.arange(n + 1)
+    assert torch.equal(rank.parallel_rank_plain(fm.blocks, qs),
+                       rank.parallel_rank_plain(base.blocks, qs) + off)
+
+    r = np.concatenate([np.arange(int((codes == c).sum())) for c in range(4)])
+    c = np.concatenate([np.full(int((codes == c).sum()), c)
+                        for c in range(4)])
+    tr, tc = torch.from_numpy(r), torch.from_numpy(c)
+    want = rank.select(base.blocks, base.block_counts, tr, tc)
+    np.testing.assert_array_equal(want.numpy(),
+                                  np.flatnonzero(codes < 4)[np.argsort(
+                                      codes[codes < 4], kind="stable")])
+    got = rank.select(fm.blocks, fm.block_counts, tr + off, tc)
+    assert torch.equal(got, want)
+    jgot = jrank.select(jnp.asarray(big.blocks),
+                        jnp.asarray(big.block_counts),
+                        jnp.asarray((r + off).astype(np.uint32)
+                                    .view(np.int32)),
+                        jnp.asarray(c.astype(np.int32)))
+    np.testing.assert_array_equal(np.asarray(jgot), want.numpy())
