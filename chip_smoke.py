@@ -16,11 +16,11 @@ Phases, each of which must pass (the script exits 1 otherwise):
    ``data/``) through ``ebwt2indel_torch.cli.main`` on CUDA, with every
    kernel's launch count reset just before and read just after;
 5. mode 1 on CUDA against the CPU (the plain PyTorch path) on the same
-   recipe cut to a 1.15 Mbp genome (~29M positions): the .snp must be
+   recipe cut to a 0.575 Mbp genome (~14.5M positions): the .snp must be
    byte-identical and the stats equal;
 6. the rank kernel timed against its plain version at the main path's shape:
    the first node chunk (256k nodes x 6 boundaries) of the full-size index;
-7. five more full-size CUDA runs for the spread of the wall and phase times
+7. three more full-size CUDA runs for the spread of the wall and phase times
    (median, min, max), then one under ``torch.profiler``: device time by
    kernel name and the device's busy share of the run;
 8. modes 3 and 2 on CUDA against the CPU on the pair data of phase 3's
@@ -43,7 +43,26 @@ Phases, each of which must pass (the script exits 1 otherwise):
     positions), mode 1 through ``cli.main`` on the default route, then on
     the other route through ``run_one_dataset``: byte-identical .snp and
     equal stats; wall, phase seconds, peak device memory and launches of
-    each route. The packed route must peak at most 12 bytes per position.
+    each route. The packed route must peak at most 12 bytes per position;
+13. ``tools_cuda_vs_cpu``: ``pebwt2indel`` on phase 3's reads (written as
+    FASTA; 3 workers, reads of 100, two pieces) on CUDA and on the CPU: the
+    ``variants.snp`` must be byte-identical, and the CUDA run must launch
+    ``rank_decode`` (counts reset just before it and read just after);
+14. ``validate_116M``: ``validate_huge`` on phase 4's .snp, the truth
+    regenerated from seed 0xBE7C and the 4.6 Mbp genome (filter m=5,
+    context placement, sort, ``vcf_vs_vcf``): SNP and indel sensitivity at
+    least 0.85 and precision at least 0.95;
+15. ``pebwt2indel_116M``: ``pebwt2indel`` on phase 4's reads on CUDA (4
+    workers, three pieces of ~39M positions), with ``rank_decode``
+    launched, scored as phase 14 and again, with phase 4's .snp, at m=3
+    (a piece holds a third of the coverage): at m=3 its SNP sensitivity at
+    least 0.6 times the in-process one (the JAX package's contract,
+    tests/test_endtoend_scoring.py:121-122);
+16. ``resume_116M``: mode 1 at full size with a checkpoint directory,
+    killed in the node phase (a wrapped node step raises after the phase's
+    second save) and run again: the .snp must equal phase 4's, the stats
+    (but ``max_pending``) equal, and the checkpoint gone; the size of each
+    checkpoint and the seconds per save.
 
 It prints the per-kernel JSON line, then the card line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -73,12 +92,16 @@ GENOME_LEN = 4_600_000
 SEED = 0xBE7C
 COVERAGE = 25
 READ_LEN = 100
-CPU_GENOME_LEN = 1_150_000  # the CUDA-vs-CPU comparison's depth (~29M)
+CPU_GENOME_LEN = 575_000  # the CUDA-vs-CPU comparison's depth (~14.5M)
 HUGE_GENOME_LEN = 41_600_000  # the 1.05G-position scale cell
 # what the recipe gives with today's simulate.py (repo root and port alike);
 # the JAX package's round-3 record, 1,050,399,394, predates a change there
 HUGE_N = 1_050_398_182
 PACKED_MAX_BYTES_PER_POS = 12
+# floors of the 116M evaluation loop, well under the TPU-era record on the
+# same recipe (VALIDATION_r05.json: 0.9555 / 0.9859 / 1.0 at 2.575G)
+VALIDATE_MIN_SENSITIVITY = 0.85
+VALIDATE_MIN_PRECISION = 0.95
 
 
 def log(msg: str) -> None:
@@ -332,13 +355,14 @@ def phase_full(results: dict, data_dir: str, log_dir: str) -> None:
     if launches["rank_decode"] <= 0:
         raise AssertionError("rank_decode never launched on the main path")
     results["launches"] = launches
+    results["full_stats"] = st
     results["full_path"] = path
     results["n"] = n
     results["full_out"] = out
     results["full_wall"] = wall
 
 
-def phase_repeats(results: dict, data_dir: str, reps: int = 5,
+def phase_repeats(results: dict, data_dir: str, reps: int = 3,
                   mode: int = 1) -> None:
     """Spread of the full-size CUDA run of a mode: wall and phase
     seconds."""
@@ -379,8 +403,9 @@ def phase_profile(results: dict, data_dir: str, mode: int = 1) -> None:
     tag = "" if mode == 1 else f"_mode{mode}"
     out = os.path.join(data_dir, f"full_profiled{tag}.snp")
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host-side events cost tens of seconds of
+    # post-processing per run and are not read
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         RUNS[mode](r["full_path"], out, "cuda")
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -636,6 +661,235 @@ def phase_scale_1g(data_dir: str, log_dir: str) -> None:
                              f"{PACKED_MAX_BYTES_PER_POS}")
 
 
+def _reads_fasta(path: str, genome_len: int, seed: int,
+                 coverage: float) -> str:
+    """Both read sets of a recipe as one FASTA file (pebwt2indel's input),
+    written once."""
+    from ebwt2indel_torch.tools import ebwt
+
+    if not os.path.isfile(path):
+        reads1, reads2 = make_reads(genome_len, seed, coverage, READ_LEN)
+        ebwt.write_fasta_reads(path + ".tmp", reads1 + reads2)
+        os.replace(path + ".tmp", path)
+    return path
+
+
+def _pebwt2indel(fasta: str, threads: int, outdir: str, device: str):
+    """One ``pebwt2indel`` run; on CUDA with the launch counts reset just
+    before and read just after. Returns the .snp bytes, the wall, the
+    launches and the tool's timing line."""
+    import torch
+
+    from ebwt2indel_torch.ops import rank_cuda
+    from ebwt2indel_torch.tools import pebwt2indel
+
+    lines: list[str] = []
+    if device == "cuda":
+        torch.cuda.synchronize()
+        rank_cuda.reset_launches()
+    t0 = time.perf_counter()
+    final = pebwt2indel.run(fasta, threads, READ_LEN, outdir, device=device,
+                            log=lines.append)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"snp": open(final, "rb").read(), "path": final,
+            "wall": time.perf_counter() - t0,
+            "launches": rank_cuda.LAUNCHES["rank_decode"],
+            "pieces": _grab(r"Processing (\d+) pieces", " ".join(lines),
+                            int)[0],
+            "timing": lines[-1]}
+
+
+def phase_tools_cuda_vs_cpu(data_dir: str) -> None:
+    """pebwt2indel on phase 3's reads, two pieces, on CUDA and on the CPU."""
+    fasta = _reads_fasta(os.path.join(data_dir, "smoke_g200000_c20.fa"),
+                         200_000, 7, 20)
+    runs = {dev: _pebwt2indel(fasta, 3, os.path.join(data_dir,
+                                                     f"peb_small_{dev}"), dev)
+            for dev in ("cuda", "cpu")}
+    for dev, r in runs.items():
+        log(f"[tools_cuda_vs_cpu] {dev}: {r['wall']:.3f} s, {r['pieces']} "
+            f"pieces, {len(r['snp'])} bytes; {r['timing']}")
+    if runs["cuda"]["snp"] != runs["cpu"]["snp"]:
+        raise AssertionError("pebwt2indel: the CUDA variants.snp differs "
+                             "from the CPU one")
+    if not runs["cpu"]["snp"] or runs["cuda"]["pieces"] != 2:
+        raise AssertionError("pebwt2indel: no events, or not two pieces")
+    if runs["cuda"]["launches"] <= 0:
+        raise AssertionError("rank_decode never launched by pebwt2indel")
+    log(f"[tools_cuda_vs_cpu] variants.snp byte-identical; rank_decode "
+        f"{runs['cuda']['launches']} launches on CUDA")
+
+
+def _score_line(label: str, rep: dict) -> None:
+    for kind in ("snp", "indel"):
+        r = rep[kind]
+        log(f"[{label}] {kind}: TP {r['TP']}, FP {r['FP']}, FN {r['FN']}, "
+            f"sensitivity {r['sensitivity']}, precision {r['precision']}")
+    log(f"[{label}] truth {rep['truth_snps']} SNPs, {rep['truth_indels']} "
+        f"indels; placed {rep['placed']} ({rep['unique_variants']} unique, "
+        f"{rep['dropped']} dropped) in {rep['place_seconds']} s; total "
+        f"{rep['total_seconds']} s; device {json.dumps(rep['device'])}")
+
+
+def _validate(results: dict, data_dir: str, snp: str, tag: str,
+              min_cov: int = 5) -> dict:
+    from ebwt2indel_torch.tools import validate_huge
+
+    return validate_huge.run(
+        GENOME_LEN, results["full_path"], snp,
+        os.path.join(data_dir, f"validation_{tag}.json"), seed=SEED,
+        device="cuda", min_cov=min_cov, log=lambda *a: None)
+
+
+def phase_validate_116m(results: dict, data_dir: str) -> None:
+    """The evaluation loop on phase 4's .snp, against the recipe's truth."""
+    rep = _validate(results, data_dir, results["full_out"], "116M")
+    _score_line("validate_116M", rep)
+    results["validate_116M"] = rep
+    for kind in ("snp", "indel"):
+        if rep[kind]["sensitivity"] < VALIDATE_MIN_SENSITIVITY or \
+                rep[kind]["precision"] < VALIDATE_MIN_PRECISION:
+            raise AssertionError(
+                f"{kind} sensitivity {rep[kind]['sensitivity']} or precision "
+                f"{rep[kind]['precision']} under the floors "
+                f"{VALIDATE_MIN_SENSITIVITY} / {VALIDATE_MIN_PRECISION}")
+
+
+def phase_pebwt2indel_116m(results: dict, data_dir: str) -> None:
+    """pebwt2indel on the full-size reads on CUDA, three pieces, scored as
+    phase 14 scores the in-process run (filter m=5), and then both runs
+    scored with the calls' own coverage floor (m=3, no filtering), since
+    each piece holds a third of the 25x for which m=5 is meant. The JAX
+    package's contract (sharded at least 0.6 x in-process) was measured on
+    one piece; it is held here on the m=3 scores."""
+    t0 = time.perf_counter()
+    fasta = _reads_fasta(
+        os.path.join(data_dir, f"reads_g{GENOME_LEN}_c{COVERAGE}"
+                               f"_l{READ_LEN}.fa"),
+        GENOME_LEN, SEED, COVERAGE)
+    log(f"[pebwt2indel_116M] set-up: FASTA ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    r = _pebwt2indel(fasta, 4, os.path.join(data_dir, "peb_116M"), "cuda")
+    log(f"[pebwt2indel_116M] {r['wall']:.3f} s wall, {r['pieces']} pieces, "
+        f"rank_decode {r['launches']} launches; {r['timing']}")
+    if r["pieces"] != 3 or r["launches"] <= 0:
+        raise AssertionError("pebwt2indel_116M: not three pieces, or "
+                             "rank_decode never launched")
+    sens = {}
+    for m in (5, 3):
+        full = results["validate_116M"] if m == 5 else \
+            _validate(results, data_dir, results["full_out"], "116M_m3", 3)
+        rep = _validate(results, data_dir, r["path"], f"peb_116M_m{m}", m)
+        _score_line(f"pebwt2indel_116M m={m}", rep)
+        full, sharded = full["snp"]["sensitivity"], rep["snp"]["sensitivity"]
+        sens[m] = full, sharded
+        log(f"[pebwt2indel_116M] m={m} SNP sensitivity: in-process {full}, "
+            f"3 pieces {sharded}, delta {full - sharded:+.4f}")
+    full, sharded = sens[3]
+    if sharded < 0.6 * full:
+        raise AssertionError(f"sharded SNP sensitivity {sharded} under 0.6 "
+                             f"x the in-process {full}")
+
+
+class _Preempted(Exception):
+    pass
+
+
+def phase_resume_116m(results: dict, data_dir: str) -> None:
+    """Mode 1 at full size killed in its node phase after the phase's second
+    checkpoint, then run again from it."""
+    import shutil
+
+    import torch
+
+    from ebwt2indel_torch.models import pipeline, traverse
+    from ebwt2indel_torch.ops import rank_cuda
+    from ebwt2indel_torch.utils.config import Config
+
+    ckpt_dir = os.path.join(data_dir, "ckpt_116M")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out = os.path.join(data_dir, "resume_116M.snp")
+    saves: list[tuple] = []  # (file, bytes, seconds)
+    wire = {"armed": False, "steps": 0}
+    real_save = traverse._Checkpoint.save
+    real_node = traverse._node_body
+
+    def save(ckpt, *a):
+        t = time.perf_counter()
+        real_save(ckpt, *a)
+        saves.append((os.path.basename(ckpt.path),
+                      os.path.getsize(ckpt.path), time.perf_counter() - t))
+
+    def node(*a, **k):
+        if wire["armed"] and \
+                sum(f == "phase_node_body.pt" for f, _, _ in saves) >= 2:
+            raise _Preempted
+        wire["steps"] += 1
+        return real_node(*a, **k)
+
+    def run(every):
+        torch.cuda.synchronize()
+        rank_cuda.reset_launches()
+        t0 = time.perf_counter()
+        st = pipeline.run_one_dataset(
+            Config(input1=results["full_path"], output=out),
+            log=lambda *a, **k: None, device="cuda", ckpt_dir=ckpt_dir,
+            ckpt_every=every)
+        torch.cuda.synchronize()
+        return st, time.perf_counter() - t0
+
+    traverse._Checkpoint.save, traverse._node_body = save, node
+    try:
+        run(0)  # counts the node chunks; saves nothing
+        chunks = wire["steps"]
+        every = max(1, chunks // 3)
+        wire.update(armed=True, steps=0)
+        t0 = time.perf_counter()
+        try:
+            run(every)
+            raise AssertionError("the trip wire did not fire")
+        except _Preempted:
+            pass
+        killed = time.perf_counter() - t0
+        first = list(saves)
+        if os.listdir(ckpt_dir) != ["phase_node_body.pt"]:
+            raise AssertionError(f"after the kill: {os.listdir(ckpt_dir)}")
+        wire.update(armed=False, steps=0)
+        saves.clear()
+        st, wall = run(every)
+        resumed_steps = wire["steps"]
+    finally:
+        traverse._Checkpoint.save, traverse._node_body = real_save, real_node
+    launches = rank_cuda.LAUNCHES["rank_decode"]
+    for label, ss in (("killed run", first), ("resumed run", saves)):
+        for name in sorted({f for f, _, _ in ss}):
+            sizes = [b for f, b, _ in ss if f == name]
+            secs = [t for f, _, t in ss if f == name]
+            log(f"[resume_116M] {label}: {len(sizes)} saves of {name}, "
+                f"{sizes[-1]} bytes each at most {max(sizes)}, seconds per "
+                f"save {[round(t, 4) for t in secs]}")
+    log(f"[resume_116M] {chunks} node chunks, a save every {every}; killed "
+        f"after {killed:.3f} s; the resumed run took {wall:.3f} s, "
+        f"{resumed_steps} node chunks, rank_decode {launches} launches; "
+        f"phase seconds {st['seconds']}")
+    if open(out, "rb").read() != open(results["full_out"], "rb").read():
+        raise AssertionError("the resumed .snp differs from full_mode1's")
+    for k in _COMPARED:
+        if st[k] != results["full_stats"][k]:
+            raise AssertionError(f"resumed {k} {st[k]} != full_mode1's "
+                                 f"{results['full_stats'][k]}")
+    if os.listdir(ckpt_dir):
+        raise AssertionError(f"checkpoint left behind: "
+                             f"{os.listdir(ckpt_dir)}")
+    if resumed_steps != chunks - 2 * every or launches <= 0:
+        raise AssertionError(f"the resumed run took {resumed_steps} node "
+                             f"chunks, not {chunks} - 2 x {every}, or "
+                             "launched no rank_decode")
+    log(f"[resume_116M] .snp byte-identical to full_mode1's, stats equal "
+        f"({', '.join(_COMPARED)}), checkpoint removed")
+
+
 def phase_kernel_at_main_shape(results: dict) -> dict:
     """Time the kernel on the first node chunk of the full-size index: the
     6 boundaries of 256k real suffix-tree nodes, in node-major order."""
@@ -728,7 +982,7 @@ def main() -> int:
     if not failures:
         phase("kernel_vs_plain", phase_kernel_vs_plain)
         phase("cuda_vs_cpu", phase_cuda_vs_cpu, data_dir)
-        phase("mode1_cuda_vs_cpu_29M", phase_cuda_vs_cpu, data_dir,
+        phase("mode1_cuda_vs_cpu_14M", phase_cuda_vs_cpu, data_dir,
               CPU_GENOME_LEN, SEED, COVERAGE)
         phase("full_mode1", phase_full, results, data_dir,
               os.path.join(here, args.log_dir))
@@ -753,6 +1007,13 @@ def main() -> int:
                           data_dir, mode)
         if all(k in results for k in ("launches", "mode3", "mode2")):
             phase("packed_116M", phase_packed_116m, results, data_dir)
+        phase("tools_cuda_vs_cpu", phase_tools_cuda_vs_cpu, data_dir)
+        if "launches" in results:
+            phase("validate_116M", phase_validate_116m, results, data_dir)
+            if "validate_116M" in results:
+                phase("pebwt2indel_116M", phase_pebwt2indel_116m, results,
+                      data_dir)
+            phase("resume_116M", phase_resume_116m, results, data_dir)
         phase("scale_mode1_1G", phase_scale_1g, data_dir,
               os.path.join(here, args.log_dir))
     log(f"[done] {time.perf_counter() - t0:.1f} s; failed phases: "

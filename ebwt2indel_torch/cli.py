@@ -5,6 +5,12 @@ ebwt2InDel.cpp:76-103 help text, 1677-1823 main). Counterpart of
     python -m ebwt2indel_torch.cli -1 reads.ebwt -o out.snp           # mode 1
     python -m ebwt2indel_torch.cli -1 a.ebwt -2 b.ebwt -o out.snp     # mode 2
     python -m ebwt2indel_torch.cli -1 merged.ebwt -d merged.da -o out.snp
+
+The traversal's checkpoint and resume is set, as in the JAX package, by
+``EBWT_CKPT_DIR`` (the directory; a run there resumes a killed one) and
+``EBWT_CKPT_EVERY`` (save every that many chunks of up to
+``traverse.CHUNK`` rows; the JAX package counts dispatches of up to 256
+chunks). This is the only place the port reads them.
 """
 
 from __future__ import annotations
@@ -140,7 +146,9 @@ def main(argv=None, *, device="cuda") -> int:
     print()
 
     try:
-        run(cfg, device=device)
+        run(cfg, device=device,
+            ckpt_dir=os.environ.get("EBWT_CKPT_DIR") or None,
+            ckpt_every=int(os.environ.get("EBWT_CKPT_EVERY", 0)))
     except ValueError as e:
         # e.g. forbidden character in the input BWT — the reference prints the
         # message and exits 1 (dna_string.hpp:90-96)

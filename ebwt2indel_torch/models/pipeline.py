@@ -68,9 +68,11 @@ def _anchor_and_clusters(res: traverse.TraversalResult, n: int,
 
 
 def run_one_dataset(cfg: Config, log=_log, device="cuda",
-                    packed: bool | None = None) -> dict:
+                    packed: bool | None = None, ckpt_dir=None,
+                    ckpt_every: int = 0) -> dict:
     """Mode 1 on ``device``. ``packed`` chooses the traversal's route
-    (``traverse.navigate_one_bwt``; None: by ``traverse.LEAN_N``). Returns
+    (``traverse.navigate_one_bwt``; None: by ``traverse.LEAN_N``), and
+    ``ckpt_dir``/``ckpt_every`` its checkpoint and resume. Returns
     the JAX package's stats (events, cluster_nr, traversal counts,
     n_clusters) plus ``seconds``: the wall time of each phase, each ended
     by a device synchronise."""
@@ -86,7 +88,8 @@ def run_one_dataset(cfg: Config, log=_log, device="cuda",
     log(f"done. [{t1 - t0:.2f}s]")
 
     log("\nPhase 2-3/4: suffix-tree wavefront navigation.")
-    res = traverse.navigate_one_bwt(fm, cfg.K, cfg.k_right, packed)
+    res = traverse.navigate_one_bwt(fm, cfg.K, cfg.k_right, packed,
+                                    ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
     t2 = time.perf_counter()
     st = res.stats
     seconds["leaf_phase"] = st.pop("leaf_seconds")
@@ -205,11 +208,13 @@ def _pair_passes(quirk0: torch.Tensor, quirk1: torch.Tensor,
 
 
 def run_two_datasets(cfg: Config, log=_log, device="cuda",
-                     packed: bool | None = None) -> dict:
+                     packed: bool | None = None, ckpt_dir=None,
+                     ckpt_every: int = 0) -> dict:
     """Mode 2 on ``device``: two eBWTs (``-1``, ``-2``) merged implicitly by
-    the lockstep traversal. ``packed`` as in ``run_one_dataset``, over the
-    merged n. Returns the JAX package's stats (with ``da_values``) plus
-    ``seconds``, the wall time of each phase."""
+    the lockstep traversal. ``packed``, ``ckpt_dir`` and ``ckpt_every`` as
+    in ``run_one_dataset``, over the merged n. Returns the JAX package's
+    stats (with ``da_values``) plus ``seconds``, the wall time of each
+    phase."""
     dev = device_mod.resolve(device)
     cfg = cfg.resolved()
     seconds = {}
@@ -224,7 +229,9 @@ def run_two_datasets(cfg: Config, log=_log, device="cuda",
     log(f"done. [{t1 - t0:.2f}s]")
 
     log("\nPhase 2-3/4: merged suffix-tree wavefront navigation.")
-    res = traverse.navigate_two_bwts(fm1, fm2, cfg.K, cfg.k_right, packed)
+    res = traverse.navigate_two_bwts(fm1, fm2, cfg.K, cfg.k_right, packed,
+                                     ckpt_dir=ckpt_dir,
+                                     ckpt_every=ckpt_every)
     t2 = time.perf_counter()
     st = res.stats
     seconds["leaf_phase"] = st.pop("leaf_seconds")
@@ -317,10 +324,12 @@ def _call_and_emit_pair_mode2(fm1: FMIndex, fm2: FMIndex,
 
 
 def run_two_datasets_da(cfg: Config, log=_log, device="cuda",
-                        packed: bool | None = None) -> dict:
+                        packed: bool | None = None, ckpt_dir=None,
+                        ckpt_every: int = 0) -> dict:
     """Mode 3 on ``device``: one merged eBWT (``-1``) and its document array
-    (``-d``). The traversal is mode 1's, and so is ``packed``. Returns the
-    JAX package's stats plus ``seconds``, the wall time of each phase."""
+    (``-d``). The traversal is mode 1's, and so are ``packed``, ``ckpt_dir``
+    and ``ckpt_every``. Returns the JAX package's stats plus ``seconds``,
+    the wall time of each phase."""
     dev = device_mod.resolve(device)
     cfg = cfg.resolved()
     seconds = {}
@@ -352,7 +361,9 @@ def run_two_datasets_da(cfg: Config, log=_log, device="cuda",
         log(f"done. [{t1 - t0:.2f}s]")
 
         log("\nPhase 2-3/4: suffix-tree wavefront navigation.")
-        res = traverse.navigate_one_bwt(fm, cfg.K, cfg.k_right, packed)
+        res = traverse.navigate_one_bwt(fm, cfg.K, cfg.k_right, packed,
+                                        ckpt_dir=ckpt_dir,
+                                        ckpt_every=ckpt_every)
         st = res.stats
         seconds["leaf_phase"] = st.pop("leaf_seconds")
         seconds["node_phase"] = st.pop("node_seconds")

@@ -32,12 +32,24 @@ Mode 2 walks the suffix trees of two indexes in lockstep
 node's boundaries in both, and the merged collection's are their sums. The
 leaf-pair step adds a third delta vector, the document array (DA), and the
 node-pair step adds flag bit 8 for the DA of size-1 leaves.
+
+Checkpoint and resume (``ckpt_dir``, ``ckpt_every`` of the navigate
+functions; traverse.py:1124-1206 of the JAX package): every ``ckpt_every``
+chunks a phase saves its pending FIFO, its accumulators (delta vectors or
+flags, and its counts) and ``max_pending`` to ``<ckpt_dir>/phase_<body>.pt``
+through a temporary file and ``os.replace``, so a kill during a save leaves
+the last good one. A phase resumes from a saved state whose ``n``, ``K``,
+``k_right`` and row width match its own, else it starts fresh, and it
+deletes the file when it completes. The writes do not depend on visit
+order, so a resumed phase gives the uninterrupted flags and counts; only
+``max_pending`` may differ.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import time
 
 import torch
@@ -213,12 +225,70 @@ def _node_pair_body(fm1: FMIndex, fm2: FMIndex, chunk, flags, stats, K: int,
     return _char_major(children, union.sum(-1) >= 2)
 
 
-def _run_phase(init: torch.Tensor, step) -> int:
+@dataclasses.dataclass
+class _Checkpoint:
+    """One phase's resume state on disk. ``state`` holds the phase's
+    accumulators (delta vectors or flags, then its counts), restored in
+    place; ``meta`` (``n``, ``K``, ``k_right``, the row width) must match
+    for a saved state to be taken. A save every ``every`` chunks (0: never).
+    """
+
+    path: str
+    every: int
+    state: list
+    meta: dict
+
+    def load(self):
+        """The saved FIFO and ``max_pending``, with ``state`` restored, or
+        None when there is no matching saved state."""
+        if not os.path.isfile(self.path):
+            return None
+        z = torch.load(self.path, map_location="cpu", weights_only=True)
+        if z["meta"] != self.meta or [t.shape for t in z["state"]] != \
+                [t.shape for t in self.state]:
+            return None
+        for t, saved in zip(self.state, z["state"]):
+            t.copy_(saved)
+        return z["queue"].to(self.state[0].device), z["max_pending"]
+
+    def save(self, queue: torch.Tensor, max_pending: int) -> None:
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        tmp = self.path + ".tmp"
+        torch.save({"meta": self.meta, "queue": queue.cpu(),
+                    "state": [t.cpu() for t in self.state],
+                    "max_pending": max_pending}, tmp)
+        os.replace(tmp, self.path)
+
+    def remove(self) -> None:
+        if os.path.isfile(self.path):
+            os.remove(self.path)
+
+
+def _checkpoint(ckpt_dir, every: int, body: str, state: list, n: int,
+                K: int, k_right: int,
+                init: torch.Tensor) -> _Checkpoint | None:
+    if not ckpt_dir:
+        return None
+    return _Checkpoint(
+        os.path.join(ckpt_dir, f"phase_{body}.pt"), every, state,
+        {"n": n, "K": K, "k_right": k_right, "width": init.shape[1]})
+
+
+def _run_phase(init: torch.Tensor, step,
+               ckpt: _Checkpoint | None = None) -> int:
     """Drain a FIFO of device row tensors in chunks of up to CHUNK rows;
     ``step(chunk)`` returns the children to queue. Returns the largest
-    pending count seen (it depends on visit order; diagnostic only)."""
+    pending count seen (it depends on visit order; diagnostic only). With
+    ``ckpt``, the phase starts from its saved state where one matches, saves
+    every ``ckpt.every`` chunks and deletes the file at the end."""
     pending = collections.deque([init])
     n_pending = max_pending = init.shape[0]
+    saved = ckpt.load() if ckpt is not None else None
+    if saved is not None:
+        queue, max_pending = saved
+        pending = collections.deque([queue])
+        n_pending = queue.shape[0]
+    steps = 0
     while pending:
         parts, need = [], CHUNK
         while pending and need:
@@ -237,6 +307,13 @@ def _run_phase(init: torch.Tensor, step) -> int:
             pending.append(children)
             n_pending += children.shape[0]
         max_pending = max(max_pending, n_pending)
+        steps += 1
+        if ckpt is not None and ckpt.every and steps % ckpt.every == 0 \
+                and pending:
+            pending = collections.deque([torch.cat(list(pending))])
+            ckpt.save(pending[0], max_pending)
+    if ckpt is not None:
+        ckpt.remove()
     return max_pending
 
 
@@ -314,13 +391,15 @@ def _combine_dense(flags: torch.Tensor, fills: list) -> list[torch.Tensor]:
 
 def navigate_one_bwt(fm: FMIndex, K: int, k_right: int,
                      packed: bool | None = None,
-                     slice_len: int | None = None) -> TraversalResult:
+                     slice_len: int | None = None, ckpt_dir=None,
+                     ckpt_every: int = 0) -> TraversalResult:
     """Single-BWT navigation (reference navigate_one_bwt,
     ebwt2InDel.cpp:555-676): the leaf phase, then the node phase.
     ``packed=None`` takes the bit-packed route from ``LEAN_N`` positions on;
-    True or False forces a route. ``stats`` carries the counts of the JAX
-    package plus the seconds of each phase (``leaf_seconds``,
-    ``node_seconds``)."""
+    True or False forces a route. With ``ckpt_dir`` each phase resumes from
+    and saves to a checkpoint there (every ``ckpt_every`` chunks; see the
+    module's docstring). ``stats`` carries the counts of the JAX package
+    plus the seconds of each phase (``leaf_seconds``, ``node_seconds``)."""
     n, dev = fm.n, fm.device
     if packed is None:
         packed = n >= LEAN_N
@@ -328,9 +407,11 @@ def navigate_one_bwt(fm: FMIndex, K: int, k_right: int,
     difs = [torch.zeros(n + 1, dtype=torch.int32, device=dev)
             for _ in range(2)]  # K, R
     st_l = torch.zeros(2, dtype=torch.int64, device=dev)  # leaves, lcp
+    init = fm.first_leaf()[None, :]
     maxp_l = _run_phase(
-        fm.first_leaf()[None, :],
-        lambda c: _leaf_body(fm, c, difs, st_l, K, k_right))
+        init, lambda c: _leaf_body(fm, c, difs, st_l, K, k_right),
+        _checkpoint(ckpt_dir, ckpt_every, "leaf_body", [*difs, st_l], n, K,
+                    k_right, init))
     fills = (_fills_packed(difs, n, slice_len) if packed
              else _fills_dense(difs, n))
     synchronize(dev)
@@ -338,9 +419,11 @@ def navigate_one_bwt(fm: FMIndex, K: int, k_right: int,
 
     flags = torch.zeros(n, dtype=torch.uint8, device=dev)
     st_n = torch.zeros(3, dtype=torch.int64, device=dev)  # nodes, lcp, n_min
+    init = fm.root()[None, :]
     maxp_n = _run_phase(
-        fm.root()[None, :],
-        lambda c: _node_body(fm, c, flags, st_n, K, k_right))
+        init, lambda c: _node_body(fm, c, flags, st_n, K, k_right),
+        _checkpoint(ckpt_dir, ckpt_every, "node_body", [flags, st_n], n, K,
+                    k_right, init))
     thr_K, thr_R, minima = (_combine_packed(flags, fills, n, slice_len)
                             if packed else _combine_dense(flags, fills))
     del flags, fills
@@ -359,13 +442,15 @@ def navigate_one_bwt(fm: FMIndex, K: int, k_right: int,
 
 def navigate_two_bwts(fm1: FMIndex, fm2: FMIndex, K: int, k_right: int,
                       packed: bool | None = None,
-                      slice_len: int | None = None) -> TraversalResult:
+                      slice_len: int | None = None, ckpt_dir=None,
+                      ckpt_every: int = 0) -> TraversalResult:
     """Lockstep navigation of two suffix trees that simulates the merged
     collection (reference navigate_two_bwts, ebwt2InDel.cpp:679-831): the
     leaf-pair phase, then the node-pair phase, over n = n1 + n2 merged
     positions. ``da`` is the merged document array. ``packed`` chooses the
-    route as in ``navigate_one_bwt``, over the merged n. ``stats`` adds
-    ``da_values`` to the counts of ``navigate_one_bwt``."""
+    route as in ``navigate_one_bwt``, over the merged n, and ``ckpt_dir``
+    and ``ckpt_every`` act as there. ``stats`` adds ``da_values`` to the
+    counts of ``navigate_one_bwt``."""
     n, dev = fm1.n + fm2.n, fm1.device
     if packed is None:
         packed = n >= LEAN_N
@@ -374,9 +459,11 @@ def navigate_two_bwts(fm1: FMIndex, fm2: FMIndex, K: int, k_right: int,
     difs = [torch.zeros(n + 1, dtype=torch.int32, device=dev)
             for _ in range(3)]  # K, R, DA
     st_l = torch.zeros(3, dtype=torch.int64, device=dev)  # leaves, lcp, da
+    init = torch.cat([fm1.first_leaf()[:2], fm2.first_leaf()[:2], zero])[None]
     maxp_l = _run_phase(
-        torch.cat([fm1.first_leaf()[:2], fm2.first_leaf()[:2], zero])[None],
-        lambda c: _leaf_pair_body(fm1, fm2, c, difs, st_l, K, k_right))
+        init, lambda c: _leaf_pair_body(fm1, fm2, c, difs, st_l, K, k_right),
+        _checkpoint(ckpt_dir, ckpt_every, "leaf_pair_body", [*difs, st_l], n,
+                    K, k_right, init))
     fills = (_fills_packed(difs, n, slice_len) if packed
              else _fills_dense(difs, n))
     synchronize(dev)
@@ -385,9 +472,11 @@ def navigate_two_bwts(fm1: FMIndex, fm2: FMIndex, K: int, k_right: int,
     flags = torch.zeros(n, dtype=torch.uint8, device=dev)
     # nodes, lcp, n_min, da
     st_n = torch.zeros(4, dtype=torch.int64, device=dev)
+    init = torch.cat([fm1.root()[:6], fm2.root()[:6], zero])[None]
     maxp_n = _run_phase(
-        torch.cat([fm1.root()[:6], fm2.root()[:6], zero])[None],
-        lambda c: _node_pair_body(fm1, fm2, c, flags, st_n, K, k_right))
+        init, lambda c: _node_pair_body(fm1, fm2, c, flags, st_n, K, k_right),
+        _checkpoint(ckpt_dir, ckpt_every, "node_pair_body", [flags, st_n], n,
+                    K, k_right, init))
     thr_K, thr_R, minima, da = (_combine_packed(flags, fills, n, slice_len)
                                 if packed else _combine_dense(flags, fills))
     del flags, fills

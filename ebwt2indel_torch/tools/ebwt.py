@@ -4,7 +4,7 @@
 The multi-string BWT of a read set comes from a suffix array of the
 terminator-joined concatenation, terminators distinct and smallest: the
 native linear-time SA-IS (``native/saca.cpp``) where it builds, else numpy
-prefix doubling.
+prefix doubling. Also the FASTA reader and writer of the read sets.
 """
 
 from __future__ import annotations
@@ -87,3 +87,30 @@ def ebwt_and_da_of_two(reads1: list[str], reads2: list[str],
     bwt = raw[prev].tobytes().decode("ascii")
     da = ((sa >= len(t1)).astype(np.uint8) + ord("0")).tobytes()
     return bwt, da.decode("ascii")
+
+
+def write_fasta_reads(path: str, reads: list[str]) -> None:
+    with open(path, "w") as f:
+        for i, r in enumerate(reads):
+            f.write(f">read_{i}\n{r}\n")
+
+
+def read_fasta(path: str) -> list[str]:
+    """The sequences of a FASTA file, uppercased, multi-line records
+    joined."""
+    reads: list[str] = []
+    cur: list[str] = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            if line.startswith(">"):
+                if cur:
+                    reads.append("".join(cur))
+                    cur = []
+            else:
+                cur.append(line.upper())
+    if cur:
+        reads.append("".join(cur))
+    return reads

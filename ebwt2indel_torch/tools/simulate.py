@@ -1,10 +1,11 @@
 """Dataset simulation for evaluation and tests (a copy of the JAX package's
-``tools/simulate.py`` generators, so the port builds its datasets alone).
+``tools/simulate.py``, so the port builds its datasets alone).
 
 The reference's evaluation protocol (datasets/simulate.pdf p.1) simulates
 reads from a genome with variants planted on a second haplotype and
-sequencing errors. The draw sequence is the JAX package's, so a seed gives
-the same reads in both packages.
+sequencing errors, and scores calls against the truth written as a VCF.
+The draw sequence is the JAX package's, so a seed gives the same reads in
+both packages.
 """
 
 from __future__ import annotations
@@ -111,3 +112,77 @@ def sample_reads(
             seq = "".join(comp[ch] for ch in reversed(seq))
         reads.append(seq)
     return reads
+
+
+def write_vcf(path: str, truth: Truth, chrom: str = "chr1",
+              sample: str = "SAMPLE") -> None:
+    """The truth set as a VCF 4.1 file, rows sorted by position."""
+    rows = [(p, r, a, "SNP") for (p, r, a) in truth.snps] + [
+        (p, r, a, "INDEL") for (p, r, a) in truth.indels
+    ]
+    rows.sort()
+    with open(path, "w") as f:
+        f.write("##fileformat=VCFv4.1\n")
+        f.write(f"##contig=<ID={chrom}>\n")
+        f.write('##FILTER=<ID=PASS,Description="All filters passed">\n')
+        f.write('##INFO=<ID=VT,Number=1,Type=String,Description="Variant type">\n')
+        f.write('##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n')
+        f.write(
+            f"#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t{sample}\n"
+        )
+        for p, r, a, vt in rows:
+            f.write(
+                f"{chrom}\t{p}\t.\t{r}\t{a}\t100\tPASS\tVT={vt}\tGT\t1|0\n"
+            )
+
+
+def main(argv=None) -> int:
+    """CLI: generate a simulated dataset (genome, alt haplotype, reads,
+    truth VCF, eBWTs) following the reference's evaluation protocol shape
+    (datasets/simulate.pdf).
+
+    usage: ebwt2indel-torch-simulate outdir [genome_len] [coverage]
+           [read_len] [seed]
+    """
+    import os
+    import sys
+
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        print(main.__doc__)
+        return 1
+    outdir = argv[0]
+    genome_len = int(argv[1]) if len(argv) > 1 else 1_000_000
+    coverage = float(argv[2]) if len(argv) > 2 else 25.0
+    read_len = int(argv[3]) if len(argv) > 3 else 100
+    seed = int(argv[4]) if len(argv) > 4 else 0
+
+    from . import ebwt
+
+    os.makedirs(outdir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    genome = random_genome(rng, genome_len)
+    hap2, truth = plant_variants(rng, genome)
+    with open(os.path.join(outdir, "ref.fasta"), "w") as f:
+        f.write(">chr1\n" + genome + "\n")
+    write_vcf(os.path.join(outdir, "truth.vcf"), truth)
+
+    reads1 = sample_reads(rng, genome, coverage / 2, read_len)
+    reads2 = sample_reads(rng, hap2, coverage / 2, read_len)
+    ebwt.write_fasta_reads(os.path.join(outdir, "reads1.fasta"), reads1)
+    ebwt.write_fasta_reads(os.path.join(outdir, "reads2.fasta"), reads2)
+
+    with open(os.path.join(outdir, "reads.ebwt"), "w") as f:
+        f.write(ebwt.ebwt_of_reads(reads1 + reads2))
+    bwt, da = ebwt.ebwt_and_da_of_two(reads1, reads2)
+    with open(os.path.join(outdir, "merged.ebwt"), "w") as f:
+        f.write(bwt)
+    with open(os.path.join(outdir, "merged.da"), "w") as f:
+        f.write(da)
+    print(f"wrote dataset to {outdir}: {len(reads1)}+{len(reads2)} reads, "
+          f"{len(truth.snps)} SNPs, {len(truth.indels)} indels")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,12 +1,15 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA rank kernel against
 its plain PyTorch version, modes 1, 2 and 3 on the card against the same
-mode on the CPU, and the bit-packed route against the dense route.
+mode on the CPU, the bit-packed route against the dense route, and a
+traversal resumed from its checkpoint against an uninterrupted run.
 A CUDA kernel has no CPU mode, so without a card these skip. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
 The file imports nothing from ``tests``, so it also collects where another
 package of that name is installed."""
+
+import os
 
 import numpy as np
 import pytest
@@ -130,3 +133,51 @@ def test_mode1_packed_matches_dense_on_card(tmp_path, monkeypatch):
     for k in ("leaves", "nodes", "lcp_values", "n_min", "n_clusters",
               "events", "cluster_nr"):
         assert stats[True][k] == stats[False][k], k
+
+
+class _Preempted(Exception):
+    pass
+
+
+def test_mode1_resume_matches_uninterrupted_on_card(tmp_path, monkeypatch):
+    """At 4M positions a mode-1 run killed in its node phase after the
+    phase's second checkpoint, then run again, writes the uninterrupted
+    .snp on the card, and the checkpoint is gone."""
+    _needs_cuda()
+    path = tmp_path / "r.ebwt"
+    genhuge.build(200_000, str(path), coverage=20, log=lambda *a: None)
+    monkeypatch.setattr(traverse, "CHUNK", 1 << 16)
+
+    def run(out, **ckpt):
+        return pipeline.run_one_dataset(
+            Config(input1=str(path), output=str(tmp_path / out)),
+            log=lambda *a, **k: None, device="cuda", **ckpt)
+
+    want = run("want.snp")
+    saves = []
+    real_save = traverse._Checkpoint.save
+    real_node = traverse._node_body
+
+    def save(ckpt, *a):
+        real_save(ckpt, *a)
+        saves.append(os.path.basename(ckpt.path))
+
+    def node(*a, **k):
+        if saves.count("phase_node_body.pt") >= 2:
+            raise _Preempted
+        return real_node(*a, **k)
+
+    monkeypatch.setattr(traverse._Checkpoint, "save", save)
+    monkeypatch.setattr(traverse, "_node_body", node)
+    ckpt = {"ckpt_dir": str(tmp_path / "ckpt"), "ckpt_every": 3}
+    with pytest.raises(_Preempted):
+        run("got.snp", **ckpt)
+    assert os.listdir(tmp_path / "ckpt") == ["phase_node_body.pt"]
+    monkeypatch.setattr(traverse, "_node_body", real_node)
+    got = run("got.snp", **ckpt)
+    assert (tmp_path / "got.snp").read_bytes() == \
+        (tmp_path / "want.snp").read_bytes()
+    for k in ("leaves", "nodes", "lcp_values", "n_min", "n_clusters",
+              "events", "cluster_nr"):
+        assert got[k] == want[k], k
+    assert os.listdir(tmp_path / "ckpt") == []

@@ -3,6 +3,7 @@ package, and its entry points refuse to run without a GPU unless the CPU is
 asked for."""
 
 import ast
+import importlib
 import os
 
 import numpy as np
@@ -35,12 +36,30 @@ def _imported_modules(path):
             yield node.module or ""
 
 
+_TOOLS = ("build_ebwt", "context2vcf", "ebwt", "filter_snp", "genhuge",
+          "pebwt2indel", "run_huge", "sam2vcf", "simulate", "snp2vcf",
+          "snp_vs_vcf", "sort_vcf", "validate_huge", "vcf_vs_vcf")
+
+
 def test_port_imports_no_jax():
     files = _port_files()
-    assert len(files) > 15
+    tools = os.path.join(REPO, "ebwt2indel_torch", "tools")
+    assert {os.path.join(tools, f"{t}.py") for t in _TOOLS} <= set(files)
     for path in files:
         for mod in _imported_modules(path):
             assert mod.split(".")[0] not in _FORBIDDEN, (path, mod)
+
+
+def test_every_tool_imports_alone():
+    """Each tool module imports, and its import loads no JAX module."""
+    tools = os.path.join(REPO, "ebwt2indel_torch", "tools")
+    names = sorted(f[:-3] for f in os.listdir(tools)
+                   if f.endswith(".py") and f != "__init__.py")
+    assert names == sorted(_TOOLS)
+    for name in names:
+        mod = importlib.import_module(f"ebwt2indel_torch.tools.{name}")
+        assert mod.__name__.endswith(name)
+        assert "ebwt2indel_tpu" not in mod.__dict__
 
 
 def _needs_no_cuda():
@@ -90,3 +109,23 @@ def test_cli_and_pipeline_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["-1", str(path), "-d", str(da), "-o",
                   str(tmp_path / "o.snp")])
+
+
+def test_tools_default_to_cuda(tmp_path):
+    """pebwt2indel and validate_huge run on the card unless asked for the
+    CPU, in their functions and their command lines."""
+    _needs_no_cuda()
+    from ebwt2indel_torch.tools import pebwt2indel, validate_huge
+
+    fa = tmp_path / "r.fa"
+    fa.write_text(">r\nACGTACGT\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pebwt2indel.run(str(fa), 2, 4, str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pebwt2indel.main([str(fa), "2", "4", str(tmp_path / "out")])
+    ebwt_path = tmp_path / "r.ebwt"
+    ebwt_path.write_text("AC#G")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        validate_huge.run(1000, str(ebwt_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        validate_huge.main(["1000", str(ebwt_path)])
