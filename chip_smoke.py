@@ -62,7 +62,22 @@ Phases, each of which must pass (the script exits 1 otherwise):
     killed in the node phase (a wrapped node step raises after the phase's
     second save) and run again: the .snp must equal phase 4's, the stats
     (but ``max_pending``) equal, and the checkpoint gone; the size of each
-    checkpoint and the seconds per save.
+    checkpoint and the seconds per save;
+17. ``mesh_rank_vs_plain``: the position mesh (``ebwt2indel_torch/
+    parallel/``) of 4 shards on the one card over the full-size index: its
+    sharded rank (each query decoded by ``rank_decode`` on its owning
+    shard's rows, the shards' answers summed), each shard's narrow rank on
+    its own rows and halo row, and its sharded select, against the plain
+    version over the whole index; max_abs_err 0;
+18. ``mesh4_mode1_116M``: mode 1 with ``EBWT_MESH=4`` through ``cli.main``
+    on CUDA (4 shards on the one card), the launch counts reset just before
+    and read just after: the .snp sha256 must equal phase 4's and the stats
+    too; per-phase seconds, mesh steps, peak device memory, launches and
+    queries. Where the host has two cards or more, the same as two NCCL
+    processes of two shards each (``mesh_nccl_2proc``); with one card that
+    phase does not run, and a line says so;
+19. ``mesh4_mode1_1G``: the same on phase 12's 1,050,398,182 positions: the
+    .snp must equal phase 12's dense-route .snp, with equal stats.
 
 It prints the per-kernel JSON line, then the card line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -321,7 +336,8 @@ def _mode1_log(text: str) -> dict:
     (t_index,) = _grab(r"done\. \[([0-9.]+)s\]", text)
     t_leaf, t_node = _grab(r"leaf phase ([0-9.]+)s, node phase ([0-9.]+)s",
                            text)
-    (t_cluster,) = _grab(r"cluster detect \(device\) ([0-9.]+)s", text)
+    (t_cluster,) = _grab(r"cluster detect \((?:device|sharded)\) "
+                         r"([0-9.]+)s", text)
     (t_call,) = _grab(r"call\+emit ([0-9.]+)s", text)
     st["seconds"] = {"index": t_index, "leaf_phase": t_leaf,
                      "node_phase": t_node, "cluster": t_cluster,
@@ -618,7 +634,7 @@ def phase_packed_116m(results: dict, data_dir: str) -> None:
             f"{', '.join(keys)}")
 
 
-def phase_scale_1g(data_dir: str, log_dir: str) -> None:
+def phase_scale_1g(results: dict, data_dir: str, log_dir: str) -> None:
     """Mode 1 at 1,050,398,182 positions: the default route through
     ``cli.main``, then the other route through ``run_one_dataset``."""
     from ebwt2indel_torch.models import traverse
@@ -650,6 +666,8 @@ def phase_scale_1g(data_dir: str, log_dir: str) -> None:
     _compare_routes("1.05G mode 1", runs, _COMPARED)
     if runs[True]["stats"]["events"] <= 0:
         raise AssertionError("the 1.05G input gave no events")
+    results["huge"] = {"path": path, "n": n, "out": out,
+                       "stats": runs[default]["stats"]}
     log(f"[scale_1G] both routes' .snp byte-identical "
         f"({len(runs[True]['snp'])} bytes, sha256 "
         f"{hashlib.sha256(runs[True]['snp']).hexdigest()}), stats equal: "
@@ -890,6 +908,177 @@ def phase_resume_116m(results: dict, data_dir: str) -> None:
         f"({', '.join(_COMPARED)}), checkpoint removed")
 
 
+def _node_chunk(fm):
+    """The boundaries (CHUNK, 6) of the first node chunk of an index: real
+    suffix-tree nodes, in node-major order."""
+    from ebwt2indel_torch.models import fm_index as fm_ops
+    from ebwt2indel_torch.models import traverse
+
+    frontier = fm.root()[None, :]
+    while frontier.shape[0] < traverse.CHUNK:
+        ext = fm_ops.extend_node(fm, frontier)
+        frontier = traverse._char_major(
+            ext, fm_ops.node_num_children(ext) >= 2)
+    return frontier[: traverse.CHUNK, :6].contiguous()
+
+
+def phase_mesh_rank_vs_plain(results: dict) -> None:
+    """The 4-shard mesh's rank and select on the card against the plain
+    version over the whole index, at the node chunk's shape, on uniform
+    queries, on queries all held by shard 0, and at the shard edges."""
+    import torch
+
+    from ebwt2indel_torch.models import fm_index as fm_ops
+    from ebwt2indel_torch.ops import rank, rank_cuda
+    from ebwt2indel_torch.parallel import frontier, mesh, shard
+
+    m = mesh.Mesh(4, device="cuda")
+    sfm = shard.shard_fm_from_file(results["full_path"], m)
+    fm = fm_ops.FMIndex.from_file(results["full_path"], device="cuda")
+    n, L = fm.n, sfm.local_n
+    rng = np.random.default_rng(5)
+    coords = _node_chunk(fm)
+    edges = [0, 127, 128, n - 1, n] + [k * L + d for k in range(1, 4)
+                                       for d in (-1, 0, 1)]
+    queries = {
+        "node chunk": coords,
+        "uniform": torch.from_numpy(rng.integers(0, n + 1, 1 << 20)).cuda(),
+        "shard 0 only": torch.from_numpy(rng.integers(0, L, 1 << 20)).cuda(),
+        "shard edges": torch.tensor(edges, device="cuda"),
+    }
+    torch.cuda.synchronize()
+    rank_cuda.reset_launches()
+    err = 0
+    for name, q in queries.items():
+        got = shard.sharded_parallel_rank(sfm, q)
+        e = int((got - rank.parallel_rank_plain(fm.blocks, q)).abs().max())
+        log(f"[mesh_rank] {name}: {q.numel()} queries, max_abs_err {e}")
+        err = max(err, e)
+    b = coords >> 7
+    for s in m.local:
+        own = coords[(b[:, 0] // sfm.rows == s) & (b[:, 5] - b[:, 0] <= 1)]
+        e = 0
+        if own.numel():
+            got = frontier._narrow_rank(sfm, s, own)
+            e = int((got - rank.parallel_rank_plain(fm.blocks, own)).abs()
+                    .max())
+        log(f"[mesh_rank] shard {s}: {own.shape[0]} narrow nodes of the "
+            f"chunk on its rows and halo, max_abs_err {e}")
+        err = max(err, e)
+    F = fm.F.tolist() + [n]
+    totals = torch.tensor([F[k + 1] - F[k] for k in range(4)], device="cuda")
+    c = torch.from_numpy(rng.integers(0, 4, 1 << 20)).cuda()
+    r = (torch.rand(c.shape, device="cuda", dtype=torch.float64)
+         * totals[c]).long()
+    got = shard.sharded_select(sfm, r, c)
+    e = int((got - rank.select(fm.blocks, fm.block_counts, r, c)).abs()
+            .max())
+    log(f"[mesh_rank] select: {r.numel()} queries, max_abs_err {e}")
+    err = max(err, e)
+    launches = rank_cuda.LAUNCHES["rank_decode"]
+    q = queries["node chunk"]
+    ms = time_ms(lambda: shard.sharded_parallel_rank(sfm, q), 20)
+    one = time_ms(lambda: rank.parallel_rank(fm.blocks, q), 20)
+    log(f"[mesh_rank] node chunk ({q.numel()} queries): 4-shard rank "
+        f"{ms:.4f} ms (4 masked rank_decode launches and the sum), one "
+        f"rank_decode launch over the whole index {one:.4f} ms")
+    log(f"[mesh_rank] rank_decode launches in the comparisons: {launches}")
+    if err != 0:
+        raise AssertionError(f"the mesh's rank or select differs from the "
+                             f"plain version: max_abs_err {err}")
+    if launches <= 0:
+        raise AssertionError("the mesh's rank never launched rank_decode")
+
+
+def _mesh_log(text: str) -> dict:
+    st = _mode1_log(text)
+    st["steps"] = _grab(r"\((\d+) and (\d+) mesh steps\)", text, int)
+    (st["shards"],) = _grab(r"\((\d+)-device mesh\)", text, int)
+    return st
+
+
+def phase_mesh(label: str, path: str, want_out: str, want_stats: dict,
+               n: int, data_dir: str, log_dir: str) -> None:
+    """Mode 1 with EBWT_MESH=4 through ``cli.main`` on CUDA: the .snp and
+    the stats must equal the single-device run's."""
+    out = os.path.join(data_dir, f"{label}.snp")
+    os.environ["EBWT_MESH"] = "4"
+    try:
+        r = _cli_run(["-1", path, "-o", out],
+                     os.path.join(log_dir, f"chip_smoke_cli_{label}.log"))
+    finally:
+        del os.environ["EBWT_MESH"]
+    st = _mesh_log(r["text"])
+    got = open(out, "rb").read()
+    want = open(want_out, "rb").read()
+    log(f"[{label}] mode 1 on {st['n']} positions, {st['shards']} shards on "
+        f"one card: {r['wall']:.4f} s wall ({n / r['wall'] / 1e6:.3f} "
+        "Mpos/s)")
+    log(f"[{label}] phase seconds: {st['seconds']}; mesh steps (leaf, node) "
+        f"{st['steps']}")
+    log(f"[{label}] torch.cuda.max_memory_allocated {r['peak']} bytes "
+        f"({r['peak'] / n:.3f} B/position)")
+    log(f"[{label}] kernels {json.dumps(r['launches'])}; queries "
+        f"{json.dumps(r['queries'])}")
+    log(f"[{label}] .snp sha256 {hashlib.sha256(got).hexdigest()}; the "
+        f"single-device run's {hashlib.sha256(want).hexdigest()}")
+    if st["shards"] != 4 or st["n"] != n:
+        raise AssertionError(f"{label}: not a 4-shard run over {n} positions")
+    if got != want:
+        raise AssertionError(f"{label}: the mesh's .snp differs from the "
+                             "single-device .snp")
+    for k in _COMPARED:
+        if st[k] != want_stats[k]:
+            raise AssertionError(f"{label} {k}: mesh {st[k]} != "
+                                 f"single-device {want_stats[k]}")
+    if r["launches"]["rank_decode"] <= 0:
+        raise AssertionError(f"{label}: rank_decode never launched")
+    log(f"[{label}] .snp byte-identical to the single-device run's, stats "
+        f"equal: {', '.join(_COMPARED)}")
+
+
+def phase_mesh_nccl(results: dict, data_dir: str, log_dir: str) -> None:
+    """Mode 1 at full size as two processes of two shards each on two
+    cards, joined over NCCL through EBWT_COORD."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(data_dir, "mesh_nccl_2proc.snp")
+    code = ("import sys; from ebwt2indel_torch import cli; "
+            "raise SystemExit(cli.main(sys.argv[1:], device='cuda'))")
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, logs, rcs = [], [], None
+    t0 = time.perf_counter()
+    try:
+        for k in range(2):
+            logs.append(open(os.path.join(log_dir, f"mesh_nccl_{k}.log"), "w"))
+            env = dict(os.environ, EBWT_MESH="4", EBWT_NPROCS="2",
+                       EBWT_PROCID=str(k), EBWT_COORD=f"localhost:{port}",
+                       PYTHONPATH=here)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, "-1", results["full_path"],
+                 "-o", out], env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    log(f"[mesh_nccl_2proc] exit codes {rcs} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    want = open(results["full_out"], "rb").read()
+    if rcs != [0, 0] or open(out, "rb").read() != want or \
+            open(out + ".proc1", "rb").read() != want:
+        raise AssertionError("the two-process NCCL mesh failed or wrote "
+                             "another .snp")
+    log("[mesh_nccl_2proc] both processes' .snp byte-identical to "
+        "full_mode1's")
+
+
 def phase_kernel_at_main_shape(results: dict) -> dict:
     """Time the kernel on the first node chunk of the full-size index: the
     6 boundaries of 256k real suffix-tree nodes, in node-major order."""
@@ -900,12 +1089,7 @@ def phase_kernel_at_main_shape(results: dict) -> dict:
     from ebwt2indel_torch.ops import rank
 
     fm = fm_ops.FMIndex.from_file(results["full_path"], device="cuda")
-    frontier = fm.root()[None, :]
-    while frontier.shape[0] < traverse.CHUNK:
-        ext = fm_ops.extend_node(fm, frontier)
-        frontier = traverse._char_major(
-            ext, fm_ops.node_num_children(ext) >= 2)
-    coords = frontier[: traverse.CHUNK, :6].contiguous()
+    coords = _node_chunk(fm)
     B = coords.numel()
     got = rank.parallel_rank(fm.blocks, coords)
     torch.cuda.synchronize()
@@ -1014,8 +1198,25 @@ def main() -> int:
                 phase("pebwt2indel_116M", phase_pebwt2indel_116m, results,
                       data_dir)
             phase("resume_116M", phase_resume_116m, results, data_dir)
-        phase("scale_mode1_1G", phase_scale_1g, data_dir,
+            phase("mesh_rank_vs_plain", phase_mesh_rank_vs_plain, results)
+            phase("mesh4_mode1_116M", phase_mesh, "mesh4_mode1_116M",
+                  results["full_path"], results["full_out"],
+                  results["full_stats"], results["n"], data_dir,
+                  os.path.join(here, args.log_dir))
+            if torch.cuda.device_count() >= 2:
+                phase("mesh_nccl_2proc", phase_mesh_nccl, results, data_dir,
+                      os.path.join(here, args.log_dir))
+            else:
+                log(f"[mesh_nccl_2proc] not run: torch.cuda.device_count() "
+                    f"is {torch.cuda.device_count()}, and NCCL puts no two "
+                    "processes of one group on one card")
+        phase("scale_mode1_1G", phase_scale_1g, results, data_dir,
               os.path.join(here, args.log_dir))
+        if "huge" in results:
+            h = results["huge"]
+            phase("mesh4_mode1_1G", phase_mesh, "mesh4_mode1_1G", h["path"],
+                  h["out"], h["stats"], h["n"], data_dir,
+                  os.path.join(here, args.log_dir))
     log(f"[done] {time.perf_counter() - t0:.1f} s; failed phases: "
         f"{failures or 'none'}")
     if failures or not kernels:

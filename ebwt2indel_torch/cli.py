@@ -10,7 +10,16 @@ The traversal's checkpoint and resume is set, as in the JAX package, by
 ``EBWT_CKPT_DIR`` (the directory; a run there resumes a killed one) and
 ``EBWT_CKPT_EVERY`` (save every that many chunks of up to
 ``traverse.CHUNK`` rows; the JAX package counts dispatches of up to 256
-chunks). This is the only place the port reads them.
+chunks).
+
+``EBWT_MESH=<S>`` runs mode 1 on a position mesh of S shards
+(``parallel/``; the same ``.snp`` bytes), all of them on ``device`` unless
+``EBWT_COORD``, ``EBWT_NPROCS`` and ``EBWT_PROCID`` join several processes
+(``parallel/launch.py``), which then hold S / processes shards each (S
+defaults to the number of processes) and of which only process 0 writes
+the output. Modes 2 and 3 do not run on a mesh yet. An environment switch,
+not a flag, keeps the optstring the reference's. This is the only place
+the port reads these variables.
 """
 
 from __future__ import annotations
@@ -20,6 +29,8 @@ import os
 import sys
 
 from .models import pipeline
+from .parallel import launch, mesh
+from .parallel import pipeline as mesh_pipeline
 from .utils.config import (
     Config, K_DEF, K_LEFT_DEF, K_RIGHT_DEF, MAX_GAP_DEF, MAX_SNVS_DEF,
     MCOV_OUT_DEF,
@@ -145,15 +156,36 @@ def main(argv=None, *, device="cuda") -> int:
               "unlimited.")
     print()
 
+    n_mesh = int(os.environ.get("EBWT_MESH", "0") or 0)
     try:
-        run(cfg, device=device,
-            ckpt_dir=os.environ.get("EBWT_CKPT_DIR") or None,
-            ckpt_every=int(os.environ.get("EBWT_CKPT_EVERY", 0)))
+        if launch.distributed_requested():
+            device = launch.init_from_env(device)
+            n_mesh = n_mesh or launch.process_count()
+            cfg = launch.redirect_output(cfg)
+        if n_mesh > 1:
+            if cfg.input2 or cfg.input_da:
+                raise NotImplementedError(
+                    f"EBWT_MESH={n_mesh}: modes 2 (-2) and 3 (-d) do not run "
+                    "on a mesh yet; the next slice of the port brings the "
+                    "pair phases and the sharded document array. Unset "
+                    "EBWT_MESH to run them on one device.")
+            mesh_pipeline.run_one_dataset_sharded(
+                cfg, mesh.Mesh(n_mesh, device=device))
+        else:
+            run(cfg, device=device,
+                ckpt_dir=os.environ.get("EBWT_CKPT_DIR") or None,
+                ckpt_every=int(os.environ.get("EBWT_CKPT_EVERY", 0)))
     except ValueError as e:
         # e.g. forbidden character in the input BWT — the reference prints the
         # message and exits 1 (dna_string.hpp:90-96)
         print(e)
         return 1
+    except NotImplementedError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    finally:
+        if launch.distributed_requested():
+            launch.shutdown()
     return 0
 
 

@@ -31,7 +31,14 @@ _NO_BIT = 1 << 30  # "no set bit" sentinel above every in-block offset
 def range_counts(fm: FMIndex, begins: torch.Tensor, ends: torch.Tensor):
     """Counts of A,C,G,T in BWT[begin:end) with the TERM->A quirk, and the
     pure (quirk-free) counts. Both endpoints go in one rank launch."""
-    r = fm_ops.parallel_rank(fm, torch.stack([begins, ends], dim=-1))
+    return range_counts_core(lambda i: fm_ops.parallel_rank(fm, i), begins,
+                             ends)
+
+
+def range_counts_core(prank, begins: torch.Tensor, ends: torch.Tensor):
+    """``range_counts`` over any rank function ``prank`` (the mesh passes
+    its sharded rank; call.py:28 of the JAX package)."""
+    r = prank(torch.stack([begins, ends], dim=-1))
     pure = r[:, 1] - r[:, 0]  # (B, 4)
     quirk = pure.clone()
     quirk[:, 0] += (ends - begins) - pure.sum(-1)
@@ -44,8 +51,15 @@ def extract_consensus_batch(fm: FMIndex, begins: torch.Tensor,
     of length k_left ending with c, its support, and whether it reached full
     length. Returns (ctx (B,4,k_left) int8 codes, support (B,4) int64,
     full (B,4) bool)."""
+    return consensus_core(lambda lo, hi: fm_ops.lf_range(fm, lo, hi),
+                          begins, ends, k_left)
+
+
+def consensus_core(lf_range, begins: torch.Tensor, ends: torch.Tensor,
+                   k_left: int):
+    """``extract_consensus_batch`` over any ``lf_range(lo, hi)``."""
     B = begins.shape[0]
-    lo4, hi4 = fm_ops.lf_range(fm, begins, ends)  # (B, 4)
+    lo4, hi4 = lf_range(begins, ends)  # (B, 4)
     support = hi4 - lo4
     ctx = torch.zeros((B * 4, k_left), dtype=torch.int8, device=begins.device)
     ctx[:, 0] = torch.arange(4, dtype=torch.int8,
@@ -55,7 +69,7 @@ def extract_consensus_batch(fm: FMIndex, begins: torch.Tensor,
     lo = lo4.reshape(-1)
     hi = hi4.reshape(-1)
     for step in range(1, k_left):
-        l4, h4 = fm_ops.lf_range(fm, lo, hi)
+        l4, h4 = lf_range(lo, hi)
         cnt = h4 - l4  # (B*4, 4)
         best = torch.argmax(cnt, dim=-1, keepdim=True)  # first max wins
         bc = torch.gather(cnt, 1, best)[:, 0]
@@ -76,17 +90,25 @@ def extract_dna_batch(fm: FMIndex, starts: torch.Tensor, active: torch.Tensor,
     """Forward extraction of up to k_right characters starting at F position
     ``starts``; stops at TERM (extract_dna, ebwt2InDel.cpp:325-342).
     Returns (seq (B, k_right) int8 codes, length (B,) int64)."""
+    return extract_dna_core(lambda i: fm_ops.f_char(fm, i),
+                            lambda i: fm_ops.fl(fm, i), starts, active,
+                            k_right)
+
+
+def extract_dna_core(f_char, fl, starts: torch.Tensor, active: torch.Tensor,
+                     k_right: int):
+    """``extract_dna_batch`` over any ``f_char(i)`` and ``fl(i)``."""
     B = starts.shape[0]
     seq = torch.zeros((B, k_right), dtype=torch.int8, device=starts.device)
     length = torch.zeros(B, dtype=torch.int64, device=starts.device)
     i, alive = starts, active
     for step in range(k_right):
-        c = fm_ops.f_char(fm, i)
+        c = f_char(i)
         alive = alive & (c != 4)
         seq[:, step] = torch.where(alive, c.to(torch.int8), seq[:, step])
         length += alive.to(torch.int64)
         # dead rows walk from 0; fl keeps them in bounds, the result is unused
-        i = torch.where(alive, fm_ops.fl(fm, torch.where(alive, i, 0)), i)
+        i = torch.where(alive, fl(torch.where(alive, i, 0)), i)
     return seq, length
 
 

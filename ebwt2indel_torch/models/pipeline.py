@@ -118,6 +118,13 @@ def run_one_dataset(cfg: Config, log=_log, device="cuda",
     stats["n_clusters"] = cl.n_clusters
     stats["seconds"] = seconds
 
+    log_single_summary(cl, stats, log)
+    return stats
+
+
+def log_single_summary(cl: cluster.Clusters, stats: dict, log=_log) -> None:
+    """Mode 1's closing lines and cluster histogram (the end of the
+    reference's run_one_dataset, ebwt2InDel.cpp:1584-1674)."""
     avg = cl.clust_size_sum / cl.n_clusters if cl.n_clusters else float("nan")
     log(f"\nDone.\nAnalyzed {cl.n_clusters} clusters.")
     log(f"Average cluster length: {avg}.\n")
@@ -130,11 +137,26 @@ def run_one_dataset(cfg: Config, log=_log, device="cuda",
         "(cluster length / number of bases inside clusters of that length): "
     )
     print_histogram(cl.hist, log)
-    return stats
 
 
 def _call_and_emit_single(fm: FMIndex, cl: cluster.Clusters, next_thr,
                           cfg: Config) -> dict:
+    return call_and_emit_single(
+        cl, cfg, fm.device,
+        range_counts=lambda b, e: call.range_counts(fm, b, e),
+        consensus=lambda b, e: call.extract_consensus_batch(
+            fm, b, e, k_left=cfg.k_left),
+        anchor=lambda b, e: call.first_thr_position_device(next_thr, b, e),
+        dna=lambda p, f: call.extract_dna_batch(fm, p, f,
+                                                k_right=cfg.k_right))
+
+
+def call_and_emit_single(cl: cluster.Clusters, cfg: Config, dev, *,
+                         range_counts, consensus, anchor, dna) -> dict:
+    """Mode 1's calling and emission over the walks of one index, on one
+    device or on the mesh (``parallel/pipeline.py``): ``range_counts(b,
+    e)``, ``consensus(b, e)``, ``anchor(b, e)`` (the right-context anchor
+    and whether it was found) and ``dna(pos, found)``."""
     B = cl.n_clusters
     with open(cfg.output, "w") as out_f:
         writer = emit.SnpWriter(
@@ -147,7 +169,7 @@ def _call_and_emit_single(fm: FMIndex, cl: cluster.Clusters, next_thr,
         # cheap filter first, on the device; only the B survivor booleans
         # come to the host (the reference rejects clusters on base counts
         # before any context extraction, ebwt2InDel.cpp:947-966)
-        quirk, _pure = call.range_counts(fm, cl.begins, cl.ends)
+        quirk, _pure = range_counts(cl.begins, cl.ends)
         freq_d = quirk >= cfg.mcov_out  # TERM->A quirk included
         nfreq = freq_d.sum(1)
         passes_d = nfreq >= 2
@@ -158,14 +180,12 @@ def _call_and_emit_single(fm: FMIndex, cl: cluster.Clusters, next_thr,
         if len(sel) == 0:
             return {"events": 0, "cluster_nr": 1}
 
-        sel_d = torch.from_numpy(sel).to(fm.device)
+        sel_d = torch.from_numpy(sel).to(dev)
         sb = cl.begins[sel_d]
         se = cl.ends[sel_d]
-        ctx, support, full = call.extract_consensus_batch(
-            fm, sb, se, k_left=cfg.k_left)
-        pos, found = call.first_thr_position_device(next_thr, sb, se)
-        seq, seqlen = call.extract_dna_batch(fm, pos, found,
-                                             k_right=cfg.k_right)
+        ctx, support, full = consensus(sb, se)
+        pos, found = anchor(sb, se)
+        seq, seqlen = dna(pos, found)
 
         out = emit_vec.emit_single(
             out_f, cfg, found.cpu().numpy(), passes[sel],

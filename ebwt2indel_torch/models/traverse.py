@@ -274,6 +274,44 @@ def _checkpoint(ckpt_dir, every: int, body: str, state: list, n: int,
         {"n": n, "K": K, "k_right": k_right, "width": init.shape[1]})
 
 
+class Fifo:
+    """A FIFO of row tensors (all of one width), popped in chunks."""
+
+    def __init__(self, rows: torch.Tensor | None = None):
+        self.parts = collections.deque()
+        self.n = 0  # rows pending
+        if rows is not None:
+            self.push(rows)
+
+    def push(self, rows: torch.Tensor) -> None:
+        if rows.shape[0]:
+            self.parts.append(rows)
+            self.n += rows.shape[0]
+
+    def pop(self, want: int) -> torch.Tensor:
+        """Up to ``want`` rows from the front (at least one is pending)."""
+        parts, need = [], want
+        while self.parts and need:
+            head = self.parts[0]
+            if head.shape[0] <= need:
+                parts.append(self.parts.popleft())
+                need -= head.shape[0]
+            else:
+                parts.append(head[:need])
+                self.parts[0] = head[need:]
+                need = 0
+        chunk = parts[0] if len(parts) == 1 else torch.cat(parts)
+        self.n -= chunk.shape[0]
+        return chunk
+
+    def merged(self) -> torch.Tensor:
+        """All pending rows as one tensor, which also becomes the FIFO's
+        only part."""
+        if len(self.parts) > 1:
+            self.parts = collections.deque([torch.cat(list(self.parts))])
+        return self.parts[0]
+
+
 def _run_phase(init: torch.Tensor, step,
                ckpt: _Checkpoint | None = None) -> int:
     """Drain a FIFO of device row tensors in chunks of up to CHUNK rows;
@@ -281,37 +319,20 @@ def _run_phase(init: torch.Tensor, step,
     pending count seen (it depends on visit order; diagnostic only). With
     ``ckpt``, the phase starts from its saved state where one matches, saves
     every ``ckpt.every`` chunks and deletes the file at the end."""
-    pending = collections.deque([init])
-    n_pending = max_pending = init.shape[0]
+    fifo = Fifo(init)
+    max_pending = init.shape[0]
     saved = ckpt.load() if ckpt is not None else None
     if saved is not None:
         queue, max_pending = saved
-        pending = collections.deque([queue])
-        n_pending = queue.shape[0]
+        fifo = Fifo(queue)
     steps = 0
-    while pending:
-        parts, need = [], CHUNK
-        while pending and need:
-            head = pending[0]
-            if head.shape[0] <= need:
-                parts.append(pending.popleft())
-                need -= head.shape[0]
-            else:
-                parts.append(head[:need])
-                pending[0] = head[need:]
-                need = 0
-        chunk = parts[0] if len(parts) == 1 else torch.cat(parts)
-        n_pending -= chunk.shape[0]
-        children = step(chunk)
-        if children.shape[0]:
-            pending.append(children)
-            n_pending += children.shape[0]
-        max_pending = max(max_pending, n_pending)
+    while fifo.n:
+        fifo.push(step(fifo.pop(CHUNK)))
+        max_pending = max(max_pending, fifo.n)
         steps += 1
         if ckpt is not None and ckpt.every and steps % ckpt.every == 0 \
-                and pending:
-            pending = collections.deque([torch.cat(list(pending))])
-            ckpt.save(pending[0], max_pending)
+                and fifo.n:
+            ckpt.save(fifo.merged(), max_pending)
     if ckpt is not None:
         ckpt.remove()
     return max_pending

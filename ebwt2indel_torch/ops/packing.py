@@ -170,6 +170,70 @@ def pack_file(path: str, term: int = dna.DEFAULT_TERM) -> PackedBwt:
         return pack_codes(read_ebwt_codes(path, term), term)
 
 
+@dataclass
+class ShardPack:
+    """One block-row range of a packed BWT, its counters local to the range
+    (packing.py:232-247 of the JAX package). ``apply_shard_base`` makes
+    them absolute; the mesh loader (``parallel/shard.py``) packs only the
+    ranges of its own shards."""
+
+    rows: np.ndarray  # (n_rows, 16) uint32; words 12..15 = the counters
+    row_counts: np.ndarray  # (n_rows, 4) int64 exclusive counts
+    totals: np.ndarray  # (5,) int64 counts of A,C,G,T,TERM in the range
+    row_lo: int  # first global block row of the range
+    n_rows: int
+
+
+def shard_row_ranges(n: int, n_shards: int) -> list[tuple[int, int]]:
+    """[lo, hi) block rows of each shard: ceil(n_blocks / n_shards) rows
+    each over n_blocks = n // 128 + 1 (the reference's (n+1)-based block
+    count, dna_string.hpp:61-62). Trailing shards may be empty."""
+    n_blocks = n // BLOCK + 1
+    rows = -(-n_blocks // n_shards)
+    return [(min(s * rows, n_blocks), min((s + 1) * rows, n_blocks))
+            for s in range(n_shards)]
+
+
+def pack_bytes_range(data: np.ndarray, row_lo: int, n_rows: int,
+                     term: int = dna.DEFAULT_TERM) -> ShardPack:
+    """Pack the characters of global block rows [row_lo, row_lo + n_rows)
+    into exactly ``n_rows`` rows with range-local counters."""
+    pb = pack_bytes(np.asarray(data), term)
+    # L characters pack into L // 128 + 1 rows. The final shard's range ends
+    # at n, so that is n_rows: its last row is the (n+1) padding row. An
+    # interior range is block-aligned and packs one row more, which belongs
+    # to the next shard and is dropped.
+    if pb.blocks.shape[0] < n_rows:
+        raise ValueError(f"{len(data)} characters do not fill {n_rows} rows")
+    return ShardPack(rows=np.ascontiguousarray(pb.blocks[:n_rows]),
+                     row_counts=widen_u32(pb.block_counts[:n_rows]),
+                     totals=pb.counts.astype(np.int64), row_lo=row_lo,
+                     n_rows=n_rows)
+
+
+def pack_file_range(path: str, row_lo: int, row_hi: int, n: int,
+                    term: int = dna.DEFAULT_TERM) -> ShardPack:
+    """Pack global block rows [row_lo, row_hi) of an ASCII eBWT file,
+    reading only its characters [row_lo * 128, min(row_hi * 128, n))."""
+    n_rows = row_hi - row_lo
+    if n_rows <= 0:
+        return ShardPack(rows=np.zeros((0, 16), np.uint32),
+                         row_counts=np.zeros((0, 4), np.int64),
+                         totals=np.zeros(5, np.int64), row_lo=row_lo,
+                         n_rows=0)
+    data = np.memmap(path, dtype=np.uint8, mode="r")
+    return pack_bytes_range(data[row_lo * BLOCK:min(row_hi * BLOCK, n)],
+                            row_lo, n_rows, term)
+
+
+def apply_shard_base(sp: ShardPack, base: np.ndarray) -> None:
+    """Make a ShardPack's counters absolute by adding ``base``, the int64
+    (4,) counts before the range, in place. The counters stay int64 here;
+    the rows hold their uint32 patterns, which ``widen_u32`` reads back."""
+    sp.row_counts += np.asarray(base, np.int64)[None, :]
+    sp.rows[:, 12:16] = (sp.row_counts & 0xFFFFFFFF).astype(np.uint32)
+
+
 _POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], dtype=np.uint8)
 
 

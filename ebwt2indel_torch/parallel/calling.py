@@ -1,0 +1,125 @@
+"""Mode 1's calling over the sharded index and flags (counterpart of the
+mode-1 parts of ``ebwt2indel_tpu/parallel/calling.py``).
+
+Cluster state (begins, ends, walk intervals) is O(#clusters) and every
+shard holds all of it, on ``mesh.device``; every rank and select is
+answered by the owning shard and combined by one ``psum``. The walk bodies
+are ``models/call.py``'s (``range_counts_core``, ``consensus_core``,
+``extract_dna_core``). Flags and the anchor table stay sharded in the
+traversal's partition: shard s holds positions [s * local_n, (s + 1) *
+local_n).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models import call, cluster
+from ..models import fm_index as fm_ops
+from . import shard
+from .mesh import Mesh
+from .shard import ShardedFM
+
+
+def range_counts_sharded(sfm: ShardedFM, begins: torch.Tensor,
+                         ends: torch.Tensor):
+    """``call.range_counts`` on the mesh: (quirk, pure) counts."""
+    return call.range_counts_core(
+        lambda i: shard.sharded_parallel_rank(sfm, i), begins, ends)
+
+
+def extract_consensus_sharded(sfm: ShardedFM, begins: torch.Tensor,
+                              ends: torch.Tensor, *, k_left: int):
+    """``call.extract_consensus_batch`` on the mesh."""
+    def lf_range(lo, hi):
+        r = shard.sharded_parallel_rank(sfm, torch.stack([lo, hi], dim=-1))
+        return sfm.F + r[..., 0, :], sfm.F + r[..., 1, :]
+
+    return call.consensus_core(lf_range, begins, ends, k_left)
+
+
+def extract_dna_sharded(sfm: ShardedFM, starts: torch.Tensor,
+                        active: torch.Tensor, *, k_right: int):
+    """``call.extract_dna_batch`` on the mesh: the FL step's select runs on
+    the shard that holds the target rank (by ``bounds``)."""
+    def fl(i):
+        cc = fm_ops.f_char(sfm, i).clamp(0, 3)
+        return shard.sharded_select(sfm, (i - sfm.F[cc]).clamp_min(0), cc)
+
+    return call.extract_dna_core(lambda i: fm_ops.f_char(sfm, i), fl,
+                                 starts, active, k_right)
+
+
+def _positions(mesh: Mesh, s: int, local_n: int) -> torch.Tensor:
+    return torch.arange(s * local_n, (s + 1) * local_n,
+                        device=mesh.devices[s])
+
+
+def next_set_table_sharded(mesh: Mesh, thr_R: dict, *, local_n: int,
+                           n: int) -> dict:
+    """``call.next_set_table`` on the mesh: next_set[i] = the smallest
+    j >= i with thr_R[j] set (n if none), per shard. A local reverse
+    cumulative minimum, then the minimum of the shards to the right (one
+    gather of S values)."""
+    loc = {}
+    for s in mesh.local:
+        pos = _positions(mesh, s, local_n)
+        idx = torch.where((thr_R[s] != 0) & (pos < n), pos, n)
+        del pos
+        loc[s] = torch.cummin(idx.flip(0), dim=0).values.flip(0)
+    firsts = torch.cat(mesh.all_gather({s: loc[s][:1] for s in mesh.local}))
+    for s in mesh.local:
+        right = firsts[s + 1:].min() if s + 1 < mesh.size else n
+        loc[s] = torch.clamp_max(loc[s], int(right))
+    return loc
+
+
+def find_clusters_sharded(mesh: Mesh, thr_K: dict, minima: dict, *,
+                          local_n: int, n: int,
+                          mcov_out: int) -> cluster.Clusters:
+    """``cluster.find_clusters_device`` on the mesh: per-shard run marks
+    with 1-element halos from both neighbours, a run still open at n-1
+    never closes, and the marks' positions gathered (O(#runs)) into the
+    clusters every shard holds."""
+    mask = {s: (thr_K[s] != 0) & (minima[s] == 0) for s in mesh.local}
+    left = mesh.shift({s: mask[s][-1:].to(torch.uint8) for s in mesh.local},
+                      1)
+    right = mesh.shift({s: mask[s][:1].to(torch.uint8) for s in mesh.local},
+                       -1)
+    starts, ends = {}, {}
+    for s in mesh.local:
+        m = mask.pop(s)
+        base = s * local_n
+        prev = torch.zeros_like(m)
+        prev[1:] = m[:-1]
+        nxt = torch.zeros_like(m)
+        nxt[:-1] = m[1:]
+        if left[s] is not None:
+            prev[0] = left[s][0] != 0
+        if right[s] is not None:
+            nxt[-1] = right[s][0] != 0
+        end_at = m & ~nxt
+        if base <= n - 1 < base + local_n:
+            end_at[n - 1 - base] = False  # (cluster.py:95 of the JAX package)
+        starts[s] = torch.nonzero(m & ~prev).flatten() + base
+        ends[s] = torch.nonzero(end_at).flatten() + base + 1
+    return cluster._runs_to_clusters(torch.cat(mesh.all_gather(starts)),
+                                     torch.cat(mesh.all_gather(ends)),
+                                     mcov_out)
+
+
+def first_thr_position_sharded(mesh: Mesh, next_set: dict,
+                               begins: torch.Tensor, ends: torch.Tensor, *,
+                               local_n: int):
+    """``call.first_thr_position_device`` on the mesh: the anchor table is
+    read at each cluster's begin by the shard that holds it."""
+    parts = {}
+    for s in mesh.local:
+        b = begins.to(mesh.devices[s]) - s * local_n
+        mine = (b >= 0) & (b < local_n)
+        out = torch.zeros_like(b)
+        out[mine] = next_set[s][b[mine]]
+        parts[s] = out
+    pos = mesh.psum(parts)
+    found = pos < ends
+    return torch.where(found, pos, 0), found

@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA rank kernel against
 its plain PyTorch version, modes 1, 2 and 3 on the card against the same
-mode on the CPU, the bit-packed route against the dense route, and a
-traversal resumed from its checkpoint against an uninterrupted run.
+mode on the CPU, the bit-packed route against the dense route, a traversal
+resumed from its checkpoint against an uninterrupted run, and mode 1 on a
+4-shard mesh held by the card against the CPU's single-device run.
 A CUDA kernel has no CPU mode, so without a card these skip. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -181,3 +182,35 @@ def test_mode1_resume_matches_uninterrupted_on_card(tmp_path, monkeypatch):
               "events", "cluster_nr"):
         assert got[k] == want[k], k
     assert os.listdir(tmp_path / "ckpt") == []
+
+
+def test_mesh_mode1_cuda_matches_cpu(tmp_path, rng):
+    """Mode 1 on a 4-shard mesh held on the one card writes the CPU's
+    single-device .snp, every shard's rank a launch of the kernel; the
+    mesh's sharded rank equals the plain version over the whole index."""
+    _needs_cuda()
+    from ebwt2indel_torch.parallel import mesh, shard
+    from ebwt2indel_torch.parallel import pipeline as mesh_pipeline
+
+    reads1, reads2 = _pair_reads(rng)
+    path = tmp_path / "r.ebwt"
+    path.write_text(ebwt.ebwt_of_reads(reads1 + reads2))
+    want = tmp_path / "cpu.snp"
+    pipeline.run_one_dataset(Config(input1=str(path), output=str(want)),
+                             log=lambda *a, **k: None, device="cpu")
+    m = mesh.Mesh(4, device="cuda")
+    before = rank_cuda.LAUNCHES["rank_decode"]
+    got = tmp_path / "mesh.snp"
+    mesh_pipeline.run_one_dataset_sharded(
+        Config(input1=str(path), output=str(got)), m,
+        log=lambda *a, **k: None)
+    assert rank_cuda.LAUNCHES["rank_decode"] > before
+    assert got.read_bytes() == want.read_bytes() and want.read_bytes()
+
+    pb = packing.pack_file(str(path))
+    sfm = shard.shard_fm(pb, m)
+    q = torch.from_numpy(rng.integers(0, pb.n + 1, size=100_000))
+    assert torch.equal(
+        shard.sharded_parallel_rank(sfm, q.cuda()).cpu(),
+        rank.parallel_rank_plain(torch.from_numpy(pb.blocks.view(np.int32)),
+                                 q))
