@@ -73,11 +73,19 @@ Phases, each of which must pass (the script exits 1 otherwise):
     on CUDA (4 shards on the one card), the launch counts reset just before
     and read just after: the .snp sha256 must equal phase 4's and the stats
     too; per-phase seconds, mesh steps, peak device memory, launches and
-    queries. Where the host has two cards or more, the same as two NCCL
+    queries;
+19. ``mesh4_mode3_116M`` and ``mesh4_mode2_116M``: modes 3 and 2 the same
+    way on phase 9's pair data: each .snp sha256 must equal phase 10's, and
+    the stats too (mode 2: with its DA values, leaves and nodes); the same
+    records, and for mode 2 the routed bytes per mesh step;
+20. ``mesh_ckpt_refused``: ``EBWT_MESH=4`` with ``EBWT_CKPT_DIR`` set exits 1
+    in each mode with the named error and writes no .snp. Where the host
+    has two cards or more, modes 1, 3 and 2 at full size as two NCCL
     processes of two shards each (``mesh_nccl_2proc``); with one card that
     phase does not run, and a line says so;
-19. ``mesh4_mode1_1G``: the same on phase 12's 1,050,398,182 positions: the
-    .snp must equal phase 12's dense-route .snp, with equal stats.
+21. ``mesh4_mode1_1G``: mode 1 with ``EBWT_MESH=4`` on phase 12's
+    1,050,398,182 positions: the .snp must equal phase 12's dense-route
+    .snp, with equal stats.
 
 It prints the per-kernel JSON line, then the card line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -508,58 +516,69 @@ def phase_pair_data(results: dict, data_dir: str) -> None:
     results["pair_paths"] = paths
 
 
-def phase_full_pair(results: dict, mode: int, data_dir: str,
-                    log_dir: str) -> None:
-    """Mode 3 or 2 at full size through ``cli.main`` on CUDA."""
-    paths = results["pair_paths"]
-    args = (["-1", paths["a.ebwt"], "-2", paths["b.ebwt"]] if mode == 2
+def _pair_args(paths: dict, mode: int) -> list:
+    return (["-1", paths["a.ebwt"], "-2", paths["b.ebwt"]] if mode == 2
             else ["-1", paths["merged.ebwt"], "-d", paths["merged.da"]])
-    out = os.path.join(data_dir, f"full_mode{mode}.snp")
-    r = _cli_run(args + ["-o", out],
-                 os.path.join(log_dir, f"chip_smoke_cli_mode{mode}.log"))
-    wall, text, launches = r["wall"], r["text"], r["launches"]
+
+
+def _pair_log(text: str, snp: bytes, mode: int) -> dict:
+    """The stats and phase ``seconds`` of a mode-3 or mode-2 ``cli.main``
+    log (single device or mesh) and its .snp."""
+    st = {}
+    st["lcp_values"], st["n"] = _grab(r"Computed (\d+)/(\d+) LCP values",
+                                      text, int)
+    (st["n_min"],) = _grab(r"Found (\d+) LCP minima", text, int)
+    (st["n_clusters"],) = _grab(r"Analyzed (\d+) clusters", text, int)
+    st["events"] = snp.count(b">") // 2  # a pair event is two records
     (t_index,) = _grab(r"done\. \[([0-9.]+)s\]", text)
     t_leaf, t_node = _grab(r"leaf phase ([0-9.]+)s, node phase ([0-9.]+)s",
                            text)
     (t_cluster,) = _grab(r"\[timing\] cluster detect[^0-9]*([0-9.]+)s",
                          text)
     (t_call,) = _grab(r"call\+emit ([0-9.]+)s", text)
-    lcp_values, n_total = _grab(r"Computed (\d+)/(\d+) LCP values", text,
-                                int)
-    (n_min,) = _grab(r"Found (\d+) LCP minima", text, int)
-    (n_clusters,) = _grab(r"Analyzed (\d+) clusters", text, int)
-    snp = open(out, "rb").read()
-    events = snp.count(b">") // 2  # a pair event is two records
-    phases = (f"index {t_index}, leaf {t_leaf}, node {t_node}, "
-              f"cluster {t_cluster}, call+emit {t_call}")
-    extra = ""
+    st["seconds"] = {"index": t_index, "leaf_phase": t_leaf,
+                     "node_phase": t_node, "cluster": t_cluster,
+                     "call_emit": t_call}
     if mode == 2:
-        da_values, _ = _grab(r"Computed (\d+)/(\d+) DA values", text, int)
-        leaves, nodes = _grab(r"Processed (\d+) suffix-tree leaves and "
-                              r"(\d+) nodes", text, int)
-        extra = (f", da_values {da_values}, leaves {leaves}, "
-                 f"nodes {nodes}")
+        (st["da_values"],) = _grab(r"Computed (\d+)/\d+ DA values", text,
+                                   int)
+        st["leaves"], st["nodes"] = _grab(
+            r"Processed (\d+) suffix-tree leaves and (\d+) nodes", text, int)
     else:
-        (t_wait,) = _grab(r"DA-side index wait ([0-9.]+)s", text)
-        phases += f", DA-side wait {t_wait}"
+        (st["seconds"]["da_wait"],) = _grab(r"DA-side index wait ([0-9.]+)s",
+                                            text)
+    return st
+
+
+def phase_full_pair(results: dict, mode: int, data_dir: str,
+                    log_dir: str) -> None:
+    """Mode 3 or 2 at full size through ``cli.main`` on CUDA."""
+    paths = results["pair_paths"]
+    out = os.path.join(data_dir, f"full_mode{mode}.snp")
+    r = _cli_run(_pair_args(paths, mode) + ["-o", out],
+                 os.path.join(log_dir, f"chip_smoke_cli_mode{mode}.log"))
+    wall, launches = r["wall"], r["launches"]
+    snp = open(out, "rb").read()
+    st = _pair_log(r["text"], snp, mode)
+    n_total = st["n"]
     log(f"[full] mode {mode} on {n_total} merged positions: {wall:.3f} s "
         f"wall ({n_total / wall / 1e6:.3f} Mpos/s)")
-    log(f"[full] mode {mode} phase seconds: {phases}")
-    log(f"[full] mode {mode} stats: lcp_values {lcp_values}, n_min {n_min}, "
-        f"n_clusters {n_clusters}{extra}")
-    log(f"[full] mode {mode}: {events} events; .snp sha256 "
+    log(f"[full] mode {mode} phase seconds: {st['seconds']}")
+    log(f"[full] mode {mode} stats: " + ", ".join(
+        f"{k} {v}" for k, v in st.items() if k not in ("n", "seconds")))
+    log(f"[full] mode {mode}: {st['events']} events; .snp sha256 "
         f"{hashlib.sha256(snp).hexdigest()}")
     log(f"[full] mode {mode} torch.cuda.max_memory_allocated {r['peak']} "
         "bytes")
     log(f"[full] mode {mode} kernels {json.dumps(launches)}; queries "
         f"{json.dumps(r['queries'])}")
     n = os.path.getsize(paths["merged.ebwt"])
-    if n_total != n or not (0 < lcp_values <= n) or events <= 0:
+    if n_total != n or not (0 < st["lcp_values"] <= n) or st["events"] <= 0:
         raise AssertionError(f"implausible full-size mode-{mode} result")
     if launches["rank_decode"] <= 0:
         raise AssertionError(f"rank_decode never launched on mode {mode}")
     results[f"mode{mode}"] = {"full_path": paths, "full_out": out, "n": n,
-                              "full_wall": wall}
+                              "full_wall": wall, "stats": st}
 
 
 def _measured_run(mode: int, inp, out: str, packed) -> dict:
@@ -990,93 +1009,129 @@ def phase_mesh_rank_vs_plain(results: dict) -> None:
         raise AssertionError("the mesh's rank never launched rank_decode")
 
 
-def _mesh_log(text: str) -> dict:
-    st = _mode1_log(text)
-    st["steps"] = _grab(r"\((\d+) and (\d+) mesh steps\)", text, int)
-    (st["shards"],) = _grab(r"\((\d+)-device mesh\)", text, int)
-    return st
-
-
-def phase_mesh(label: str, path: str, want_out: str, want_stats: dict,
-               n: int, data_dir: str, log_dir: str) -> None:
-    """Mode 1 with EBWT_MESH=4 through ``cli.main`` on CUDA: the .snp and
+def phase_mesh(label: str, args: list, want_out: str, want_stats: dict,
+               n: int, data_dir: str, log_dir: str, mode: int = 1) -> None:
+    """A mode with EBWT_MESH=4 through ``cli.main`` on CUDA: the .snp and
     the stats must equal the single-device run's."""
     out = os.path.join(data_dir, f"{label}.snp")
     os.environ["EBWT_MESH"] = "4"
     try:
-        r = _cli_run(["-1", path, "-o", out],
+        r = _cli_run(args + ["-o", out],
                      os.path.join(log_dir, f"chip_smoke_cli_{label}.log"))
     finally:
         del os.environ["EBWT_MESH"]
-    st = _mesh_log(r["text"])
     got = open(out, "rb").read()
     want = open(want_out, "rb").read()
-    log(f"[{label}] mode 1 on {st['n']} positions, {st['shards']} shards on "
+    text = r["text"]
+    st = _mode1_log(text) if mode == 1 else _pair_log(text, got, mode)
+    steps = _grab(r"\((\d+) and (\d+) mesh steps", text, int)
+    (shards,) = _grab(r"\((\d+)-device mesh\)", text, int)
+    log(f"[{label}] mode {mode} on {st['n']} positions, {shards} shards on "
         f"one card: {r['wall']:.4f} s wall ({n / r['wall'] / 1e6:.3f} "
         "Mpos/s)")
     log(f"[{label}] phase seconds: {st['seconds']}; mesh steps (leaf, node) "
-        f"{st['steps']}")
+        f"{steps}")
+    if mode == 2:
+        (routed,) = _grab(r"(\d+) routed bytes per step", text, int)
+        log(f"[{label}] routed bytes per step (all_to_all rows sent to "
+            f"another shard): {routed}")
     log(f"[{label}] torch.cuda.max_memory_allocated {r['peak']} bytes "
         f"({r['peak'] / n:.3f} B/position)")
     log(f"[{label}] kernels {json.dumps(r['launches'])}; queries "
         f"{json.dumps(r['queries'])}")
     log(f"[{label}] .snp sha256 {hashlib.sha256(got).hexdigest()}; the "
         f"single-device run's {hashlib.sha256(want).hexdigest()}")
-    if st["shards"] != 4 or st["n"] != n:
+    if shards != 4 or st["n"] != n:
         raise AssertionError(f"{label}: not a 4-shard run over {n} positions")
     if got != want:
         raise AssertionError(f"{label}: the mesh's .snp differs from the "
                              "single-device .snp")
-    for k in _COMPARED:
+    keys = [k for k in want_stats if k not in ("seconds", "n")]
+    for k in keys:
         if st[k] != want_stats[k]:
             raise AssertionError(f"{label} {k}: mesh {st[k]} != "
                                  f"single-device {want_stats[k]}")
     if r["launches"]["rank_decode"] <= 0:
         raise AssertionError(f"{label}: rank_decode never launched")
     log(f"[{label}] .snp byte-identical to the single-device run's, stats "
-        f"equal: {', '.join(_COMPARED)}")
+        f"equal: {', '.join(keys)}")
+
+
+def phase_mesh_ckpt_refused(results: dict, data_dir: str) -> None:
+    """EBWT_MESH=4 with EBWT_CKPT_DIR set: ``cli.main`` exits 1 in each
+    mode with the named error, and writes no .snp."""
+    from ebwt2indel_torch import cli
+
+    paths = results["pair_paths"]
+    ckpt_dir = os.path.join(data_dir, "ckpt_mesh")
+    out = os.path.join(data_dir, "mesh_ckpt_refused.snp")
+    if os.path.exists(out):
+        os.remove(out)
+    os.environ.update(EBWT_MESH="4", EBWT_CKPT_DIR=ckpt_dir)
+    try:
+        for mode, args in ((1, ["-1", results["full_path"]]),
+                           (3, _pair_args(paths, 3)),
+                           (2, _pair_args(paths, 2))):
+            err = io.StringIO()
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(args + ["-o", out], device="cuda")
+            msg = err.getvalue().strip()
+            log(f"[mesh_ckpt_refused] mode {mode}: exit {rc}; {msg}")
+            if rc != 1 or "checkpoint/resume does not run on a mesh yet" \
+                    not in msg or os.path.exists(out) or \
+                    os.path.exists(ckpt_dir):
+                raise AssertionError(f"mode {mode}: the mesh did not refuse "
+                                     "EBWT_CKPT_DIR aloud")
+    finally:
+        del os.environ["EBWT_MESH"], os.environ["EBWT_CKPT_DIR"]
 
 
 def phase_mesh_nccl(results: dict, data_dir: str, log_dir: str) -> None:
-    """Mode 1 at full size as two processes of two shards each on two
-    cards, joined over NCCL through EBWT_COORD."""
+    """Modes 1, 3 and 2 at full size as two processes of two shards each on
+    two cards, joined over NCCL through EBWT_COORD."""
     import socket
 
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    out = os.path.join(data_dir, "mesh_nccl_2proc.snp")
     code = ("import sys; from ebwt2indel_torch import cli; "
             "raise SystemExit(cli.main(sys.argv[1:], device='cuda'))")
     here = os.path.dirname(os.path.abspath(__file__))
-    procs, logs, rcs = [], [], None
-    t0 = time.perf_counter()
-    try:
-        for k in range(2):
-            logs.append(open(os.path.join(log_dir, f"mesh_nccl_{k}.log"), "w"))
-            env = dict(os.environ, EBWT_MESH="4", EBWT_NPROCS="2",
-                       EBWT_PROCID=str(k), EBWT_COORD=f"localhost:{port}",
-                       PYTHONPATH=here)
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", code, "-1", results["full_path"],
-                 "-o", out], env=env, stdout=logs[-1],
-                stderr=subprocess.STDOUT))
-        rcs = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
-        for f in logs:
-            f.close()
-    log(f"[mesh_nccl_2proc] exit codes {rcs} in "
-        f"{time.perf_counter() - t0:.3f} s")
-    want = open(results["full_out"], "rb").read()
-    if rcs != [0, 0] or open(out, "rb").read() != want or \
-            open(out + ".proc1", "rb").read() != want:
-        raise AssertionError("the two-process NCCL mesh failed or wrote "
-                             "another .snp")
-    log("[mesh_nccl_2proc] both processes' .snp byte-identical to "
-        "full_mode1's")
+    paths = results["pair_paths"]
+    for mode, args, want in (
+            (1, ["-1", results["full_path"]], results["full_out"]),
+            (3, _pair_args(paths, 3), results["mode3"]["full_out"]),
+            (2, _pair_args(paths, 2), results["mode2"]["full_out"])):
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        out = os.path.join(data_dir, f"mesh_nccl_2proc_mode{mode}.snp")
+        procs, logs, rcs = [], [], None
+        t0 = time.perf_counter()
+        try:
+            for k in range(2):
+                logs.append(open(os.path.join(
+                    log_dir, f"mesh_nccl_mode{mode}_{k}.log"), "w"))
+                env = dict(os.environ, EBWT_MESH="4", EBWT_NPROCS="2",
+                           EBWT_PROCID=str(k), EBWT_COORD=f"localhost:{port}",
+                           PYTHONPATH=here)
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code, *args, "-o", out], env=env,
+                    stdout=logs[-1], stderr=subprocess.STDOUT))
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
+        log(f"[mesh_nccl_2proc] mode {mode}: exit codes {rcs} in "
+            f"{time.perf_counter() - t0:.3f} s")
+        want = open(want, "rb").read()
+        if rcs != [0, 0] or open(out, "rb").read() != want or \
+                open(out + ".proc1", "rb").read() != want:
+            raise AssertionError(f"mode {mode}: the two-process NCCL mesh "
+                                 "failed or wrote another .snp")
+        log(f"[mesh_nccl_2proc] mode {mode}: both processes' .snp "
+            "byte-identical to the single-device run's")
 
 
 def phase_kernel_at_main_shape(results: dict) -> dict:
@@ -1200,9 +1255,20 @@ def main() -> int:
             phase("resume_116M", phase_resume_116m, results, data_dir)
             phase("mesh_rank_vs_plain", phase_mesh_rank_vs_plain, results)
             phase("mesh4_mode1_116M", phase_mesh, "mesh4_mode1_116M",
-                  results["full_path"], results["full_out"],
+                  ["-1", results["full_path"]], results["full_out"],
                   results["full_stats"], results["n"], data_dir,
                   os.path.join(here, args.log_dir))
+        for mode in (3, 2):
+            if f"mode{mode}" in results:
+                r = results[f"mode{mode}"]
+                phase(f"mesh4_mode{mode}_116M", phase_mesh,
+                      f"mesh4_mode{mode}_116M",
+                      _pair_args(results["pair_paths"], mode), r["full_out"],
+                      r["stats"], r["n"], data_dir,
+                      os.path.join(here, args.log_dir), mode)
+        if all(k in results for k in ("launches", "mode3", "mode2")):
+            phase("mesh_ckpt_refused", phase_mesh_ckpt_refused, results,
+                  data_dir)
             if torch.cuda.device_count() >= 2:
                 phase("mesh_nccl_2proc", phase_mesh_nccl, results, data_dir,
                       os.path.join(here, args.log_dir))
@@ -1214,8 +1280,8 @@ def main() -> int:
               os.path.join(here, args.log_dir))
         if "huge" in results:
             h = results["huge"]
-            phase("mesh4_mode1_1G", phase_mesh, "mesh4_mode1_1G", h["path"],
-                  h["out"], h["stats"], h["n"], data_dir,
+            phase("mesh4_mode1_1G", phase_mesh, "mesh4_mode1_1G",
+                  ["-1", h["path"]], h["out"], h["stats"], h["n"], data_dir,
                   os.path.join(here, args.log_dir))
     log(f"[done] {time.perf_counter() - t0:.1f} s; failed phases: "
         f"{failures or 'none'}")

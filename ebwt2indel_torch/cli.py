@@ -12,14 +12,16 @@ The traversal's checkpoint and resume is set, as in the JAX package, by
 ``traverse.CHUNK`` rows; the JAX package counts dispatches of up to 256
 chunks).
 
-``EBWT_MESH=<S>`` runs mode 1 on a position mesh of S shards
-(``parallel/``; the same ``.snp`` bytes), all of them on ``device`` unless
-``EBWT_COORD``, ``EBWT_NPROCS`` and ``EBWT_PROCID`` join several processes
-(``parallel/launch.py``), which then hold S / processes shards each (S
-defaults to the number of processes) and of which only process 0 writes
-the output. Modes 2 and 3 do not run on a mesh yet. An environment switch,
-not a flag, keeps the optstring the reference's. This is the only place
-the port reads these variables.
+``EBWT_MESH=<S>`` runs any of the three modes on a position mesh of S
+shards (``parallel/``; the same ``.snp`` bytes), all of them on ``device``
+unless ``EBWT_COORD``, ``EBWT_NPROCS`` and ``EBWT_PROCID`` join several
+processes (``parallel/launch.py``), which then hold S / processes shards
+each (S defaults to the number of processes) and of which only process 0
+writes the output. The mesh has no checkpoint and resume yet, so a mesh run
+with ``EBWT_CKPT_DIR`` set exits 1 (every process, before any joins a
+group) rather than run without it. An environment switch, not a flag,
+keeps the optstring the reference's. This is the only place the port reads
+these variables.
 """
 
 from __future__ import annotations
@@ -133,14 +135,17 @@ def main(argv=None, *, device="cuda") -> int:
         print(f"Running on two samples. Input eBWT files : {cfg.input1} "
               f"and {cfg.input2}")
         run = pipeline.run_two_datasets
+        run_sharded = mesh_pipeline.run_two_datasets_sharded
     elif cfg.input_da:
         print(f"Running on one sample with input Document array. Input "
               f"eBWT/DA files : {cfg.input1} and {cfg.input_da}")
         run = pipeline.run_two_datasets_da
+        run_sharded = mesh_pipeline.run_two_datasets_da_sharded
     else:
         print(f"Running on one sample (genotyping). Input eBWT file : "
               f"{cfg.input1}")
         run = pipeline.run_one_dataset
+        run_sharded = mesh_pipeline.run_one_dataset_sharded
 
     r = cfg.resolved()
     print(f"Left-extending eBWT ranges by {r.k_left} bases.")
@@ -157,23 +162,22 @@ def main(argv=None, *, device="cuda") -> int:
     print()
 
     n_mesh = int(os.environ.get("EBWT_MESH", "0") or 0)
+    ckpt_dir = os.environ.get("EBWT_CKPT_DIR") or None
     try:
+        if ckpt_dir and (n_mesh > 1 or launch.distributed_requested()):
+            # refused before any process joins a group, so none waits
+            raise NotImplementedError(
+                f"EBWT_CKPT_DIR={ckpt_dir}: checkpoint/resume does not run "
+                "on a mesh yet, and a mesh run would not save or resume. "
+                "Unset EBWT_MESH or EBWT_CKPT_DIR (and EBWT_COORD).")
         if launch.distributed_requested():
             device = launch.init_from_env(device)
             n_mesh = n_mesh or launch.process_count()
             cfg = launch.redirect_output(cfg)
         if n_mesh > 1:
-            if cfg.input2 or cfg.input_da:
-                raise NotImplementedError(
-                    f"EBWT_MESH={n_mesh}: modes 2 (-2) and 3 (-d) do not run "
-                    "on a mesh yet; the next slice of the port brings the "
-                    "pair phases and the sharded document array. Unset "
-                    "EBWT_MESH to run them on one device.")
-            mesh_pipeline.run_one_dataset_sharded(
-                cfg, mesh.Mesh(n_mesh, device=device))
+            run_sharded(cfg, mesh.Mesh(n_mesh, device=device))
         else:
-            run(cfg, device=device,
-                ckpt_dir=os.environ.get("EBWT_CKPT_DIR") or None,
+            run(cfg, device=device, ckpt_dir=ckpt_dir,
                 ckpt_every=int(os.environ.get("EBWT_CKPT_EVERY", 0)))
     except ValueError as e:
         # e.g. forbidden character in the input BWT — the reference prints the

@@ -17,6 +17,7 @@ from __future__ import annotations
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
 import torch
@@ -198,7 +199,7 @@ def call_and_emit_single(cl: cluster.Clusters, cfg: Config, dev, *,
         return out
 
 
-def _log_pair_summary(cl: cluster.Clusters, log) -> None:
+def log_pair_summary(cl: cluster.Clusters, log) -> None:
     avg = cl.clust_size_sum / cl.n_clusters if cl.n_clusters else float("nan")
     log(f"\nDone.\nAnalyzed {cl.n_clusters} clusters.")
     log(f"Average cluster length: {avg}.\n")
@@ -285,46 +286,63 @@ def run_two_datasets(cfg: Config, log=_log, device="cuda",
     stats.update(st)
     stats["n_clusters"] = cl.n_clusters
     stats["seconds"] = seconds
-    _log_pair_summary(cl, log)
+    log_pair_summary(cl, log)
     return stats
 
 
 def _call_and_emit_pair_mode2(fm1: FMIndex, fm2: FMIndex,
                               cl: cluster.Clusters, next_thr, da_bv,
                               cfg: Config) -> dict:
+    words, counts = da_bv
+    fms = (fm1, fm2)
+    return call_and_emit_pair_mode2(
+        cl, cfg, fm1.device,
+        da_rank1=lambda i: rank.bv_rank1(words, counts, i),
+        da_get=lambda i: rank.bv_get(words, i),
+        range_counts=[partial(call.range_counts, fm) for fm in fms],
+        consensus=[partial(call.extract_consensus_batch, fm,
+                           k_left=cfg.k_left) for fm in fms],
+        anchor=lambda b, e: call.first_thr_position_device(next_thr, b, e),
+        dna=[partial(call.extract_dna_batch, fm, k_right=cfg.k_right)
+             for fm in fms])
+
+
+def call_and_emit_pair_mode2(cl: cluster.Clusters, cfg: Config, dev, *,
+                             da_rank1, da_get, range_counts, consensus,
+                             anchor, dna) -> dict:
+    """Mode 2's calling and emission, on one device or on the mesh
+    (``parallel/pipeline.py``): ``da_rank1(i)`` and ``da_get(i)`` (int64 0
+    or 1) over the merged document array, ``anchor(b, e)`` over the merged
+    anchor table, and a pair of walks, one per index, in ``range_counts``
+    ((b, e) -> quirk, pure), ``consensus`` ((b, e)) and ``dna`` ((pos,
+    found))."""
     with open(cfg.output, "w") as out_f:
         if cl.n_clusters == 0:
             return {"events": 0, "cluster_nr": 1}
-        words, counts = da_bv
         begins, ends = cl.begins, cl.ends
         # each sample's sub-range of a merged range, by DA rank (the
         # reference advances i0/i1 position by position, cpp:1431-1432)
-        b1 = rank.bv_rank1(words, counts, begins)
-        e1 = rank.bv_rank1(words, counts, ends)
+        b1 = da_rank1(begins)
+        e1 = da_rank1(ends)
         b0 = begins - b1
         e0 = ends - e1
-        quirk0, _ = call.range_counts(fm1, b0, e0)
-        quirk1, _ = call.range_counts(fm2, b1, e1)
+        quirk0, _ = range_counts[0](b0, e0)
+        quirk1, _ = range_counts[1](b1, e1)
         passes = _pair_passes(quirk0, quirk1, cfg).cpu().numpy()
         sel = np.flatnonzero(passes)
         if len(sel) == 0:
             return {"events": 0, "cluster_nr": 1}
 
-        sel_d = torch.from_numpy(sel).to(fm1.device)
-        ctx0, support0, full0 = call.extract_consensus_batch(
-            fm1, b0[sel_d], e0[sel_d], k_left=cfg.k_left)
-        ctx1, support1, full1 = call.extract_consensus_batch(
-            fm2, b1[sel_d], e1[sel_d], k_left=cfg.k_left)
+        sel_d = torch.from_numpy(sel).to(dev)
+        ctx0, support0, full0 = consensus[0](b0[sel_d], e0[sel_d])
+        ctx1, support1, full1 = consensus[1](b1[sel_d], e1[sel_d])
         # the right context comes from the index that holds the anchor
         # position; each walk runs only on its own side's clusters
-        pos, found = call.first_thr_position_device(
-            next_thr, begins[sel_d], ends[sel_d])
-        hit1 = rank.bv_rank1(words, counts, pos)
-        da_at = rank.bv_get(words, pos) != 0
-        seq0, len0 = call.extract_dna_batch(fm1, pos - hit1, found & ~da_at,
-                                            k_right=cfg.k_right)
-        seq1, len1 = call.extract_dna_batch(fm2, hit1, found & da_at,
-                                            k_right=cfg.k_right)
+        pos, found = anchor(begins[sel_d], ends[sel_d])
+        hit1 = da_rank1(pos)
+        da_at = da_get(pos) != 0
+        seq0, len0 = dna[0](pos - hit1, found & ~da_at)
+        seq1, len1 = dna[1](hit1, found & da_at)
         seq = torch.where(da_at[:, None], seq1, seq0)
         seqlen = torch.where(da_at, len1, len0)
 
@@ -343,6 +361,15 @@ def _call_and_emit_pair_mode2(fm1: FMIndex, fm2: FMIndex,
         )
 
 
+def mask_da0(raw: np.ndarray, da: np.ndarray, term: int) -> np.ndarray:
+    """The eBWT bytes of mode 3's DA = 1 side: each byte whose document
+    array bit ``da`` (0/1 uint8) is 0 becomes TERM (in ASCII, so the native
+    packer packs it). The select is done in uint8 arithmetic, exact modulo
+    256: np.where is ~5x slower at 116M positions."""
+    t = np.uint8(term)
+    return (raw - t) * da + t
+
+
 def run_two_datasets_da(cfg: Config, log=_log, device="cuda",
                         packed: bool | None = None, ckpt_dir=None,
                         ckpt_every: int = 0) -> dict:
@@ -359,14 +386,10 @@ def run_two_datasets_da(cfg: Config, log=_log, device="cuda",
 
     def da_side():
         da = packing.read_da_file(cfg.input_da, raw.size)
-        # the index of the DA = 1 side: DA = 0 characters become TERM (in
-        # ASCII, so the native packer packs it), and each sample's counts
-        # come from two rank differences. The select is done in uint8
-        # arithmetic, exact modulo 256: np.where is ~5x slower at 116M.
-        term = np.uint8(cfg.term)
-        raw_da1 = (raw - term) * da + term
-        fm_da1 = FMIndex.from_packed(packing.pack_bytes(raw_da1, cfg.term),
-                                     dev)
+        # the index of the DA = 1 side; each sample's counts come from two
+        # rank differences
+        fm_da1 = FMIndex.from_packed(
+            packing.pack_bytes(mask_da0(raw, da, cfg.term), cfg.term), dev)
         return fm_da1, bits.from_numpy(*packing.pack_bitvector(da),
                                        device=dev)
 
@@ -414,7 +437,7 @@ def run_two_datasets_da(cfg: Config, log=_log, device="cuda",
     stats.update(st)
     stats["n_clusters"] = cl.n_clusters
     stats["seconds"] = seconds
-    _log_pair_summary(cl, log)
+    log_pair_summary(cl, log)
     # the reference prints its never-incremented `events` counter here,
     # always 0 (ebwt2InDel.cpp:1577)
     log(f"\nStored to file 0 sequences clustered in "
@@ -425,18 +448,38 @@ def run_two_datasets_da(cfg: Config, log=_log, device="cuda",
 def _call_and_emit_pair_mode3(fm: FMIndex, fm_da1: FMIndex,
                               cl: cluster.Clusters, next_thr, da_bv,
                               cfg: Config) -> dict:
+    words, counts = da_bv
+    return call_and_emit_pair_mode3(
+        cl, cfg, fm.device,
+        range_counts_all=lambda b, e: call.range_counts(fm, b, e),
+        range_counts_da1=lambda b, e: call.range_counts(fm_da1, b, e),
+        da_rank1=lambda i: rank.bv_rank1(words, counts, i),
+        consensus=lambda b, e: call.extract_consensus_batch(
+            fm, b, e, k_left=cfg.k_left),
+        anchor=lambda b, e: call.first_thr_position_device(next_thr, b, e),
+        dna=lambda p, f: call.extract_dna_batch(fm, p, f,
+                                                k_right=cfg.k_right))
+
+
+def call_and_emit_pair_mode3(cl: cluster.Clusters, cfg: Config, dev, *,
+                             range_counts_all, range_counts_da1, da_rank1,
+                             consensus, anchor, dna) -> dict:
+    """Mode 3's calling and emission, on one device or on the mesh
+    (``parallel/pipeline.py``): ``range_counts_all(b, e)`` over the merged
+    index and ``range_counts_da1(b, e)`` over its DA = 1 side (quirk,
+    pure), ``da_rank1(i)`` over the document array, and ``consensus(b,
+    e)``, ``anchor(b, e)`` and ``dna(pos, found)`` over the merged
+    index."""
     with open(cfg.output, "w") as out_f:
         if cl.n_clusters == 0:
             return {"events": 0, "cluster_nr": 1}
-        words, counts = da_bv
         begins, ends = cl.begins, cl.ends
         # each sample's counts with the TERM->A quirk applied per side
         # (find_variants with a DA, ebwt2InDel.cpp:1013-1030); the lengths
         # come from the DA rank
-        _, pure_all = call.range_counts(fm, begins, ends)
-        _, pure1 = call.range_counts(fm_da1, begins, ends)
-        len1 = (rank.bv_rank1(words, counts, ends)
-                - rank.bv_rank1(words, counts, begins))
+        _, pure_all = range_counts_all(begins, ends)
+        _, pure1 = range_counts_da1(begins, ends)
+        len1 = da_rank1(ends) - da_rank1(begins)
         pure0 = pure_all - pure1
         quirk1 = pure1.clone()
         quirk1[:, 0] += len1 - pure1.sum(1)
@@ -449,14 +492,12 @@ def _call_and_emit_pair_mode3(fm: FMIndex, fm_da1: FMIndex,
 
         # both samples' left contexts come from the merged index
         # (cpp:1057-1058), so they share the consensus and its support
-        sel_d = torch.from_numpy(sel).to(fm.device)
+        sel_d = torch.from_numpy(sel).to(dev)
         sb = begins[sel_d]
         se = ends[sel_d]
-        ctx, support, full = call.extract_consensus_batch(
-            fm, sb, se, k_left=cfg.k_left)
-        pos, found = call.first_thr_position_device(next_thr, sb, se)
-        seq, seqlen = call.extract_dna_batch(fm, pos, found,
-                                             k_right=cfg.k_right)
+        ctx, support, full = consensus(sb, se)
+        pos, found = anchor(sb, se)
+        seq, seqlen = dna(pos, found)
 
         ctx_ascii = _decode_rows(ctx.cpu().numpy(), cfg.term)
         support = support.cpu().numpy()

@@ -171,21 +171,38 @@ def _leaf_pair_body(fm1: FMIndex, fm2: FMIndex, chunk, difs, stats, K: int,
     [f2+s1, end), the collection-2 part. Children are kept when the two
     sides together hold >= 2 positions (cpp:452-472); size-1 leaves are
     recovered in the node phase."""
+    for dif, (lo, hi) in zip(difs, leaf_pair_bounds(chunk, stats, K,
+                                                    k_right)):
+        _add_bounds(dif, lo, hi)
+    r1 = fm_ops.parallel_rank(fm1, chunk[:, 0:2])
+    r2 = fm_ops.parallel_rank(fm2, chunk[:, 2:4])
+    return leaf_pair_children(fm1.F, fm2.F, chunk, r1, r2)
+
+
+def leaf_pair_bounds(chunk, stats, K: int, k_right: int):
+    """The (lo, hi) ranges of the K, R and DA fills of leaf-pair rows
+    (C, 5), in merged positions; adds the leaves, LCP and DA counts to
+    stats[0:3]."""
     f1, s1, f2, s2, depth = chunk.unbind(1)
     start1 = f1 + f2
     end = s1 + s2
-    for dif, bound in zip(difs[:2], (K, k_right)):
-        on = depth >= bound
-        _add_bounds(dif, start1[on] + 1, end[on])
-    _add_bounds(difs[2], f2 + s1, end)
     stats[0] += chunk.shape[0]
     stats[1] += (end - start1 - 1).sum()
     stats[2] += (end - start1).sum()  # da_values
+    on_k, on_r = depth >= K, depth >= k_right
+    return ((start1[on_k] + 1, end[on_k]), (start1[on_r] + 1, end[on_r]),
+            (f2 + s1, end))
 
-    lo1, hi1 = fm_ops.lf_range(fm1, f1, s1)  # (C, 4)
-    lo2, hi2 = fm_ops.lf_range(fm2, f2, s2)
+
+def leaf_pair_children(F1, F2, chunk, r1, r2):
+    """The left extensions of leaf-pair rows (C, 5) from the ranks (C, 2, 4)
+    of their side-1 and side-2 boundaries, kept where the two sides
+    together hold >= 2 positions."""
+    lo1, hi1 = F1 + r1[:, 0], F1 + r1[:, 1]
+    lo2, hi2 = F2 + r2[:, 0], F2 + r2[:, 1]
     children = torch.stack(
-        [lo1, hi1, lo2, hi2, (depth + 1)[:, None].expand_as(lo1)], dim=-1)
+        [lo1, hi1, lo2, hi2, (chunk[:, 4] + 1)[:, None].expand_as(lo1)],
+        dim=-1)
     return _char_major(children, (hi1 - lo1) + (hi2 - lo2) >= 2)
 
 
@@ -195,33 +212,46 @@ def _node_pair_body(fm1: FMIndex, fm2: FMIndex, chunk, flags, stats, K: int,
     (find_leaves, ebwt2InDel.cpp:474-527), the merged node's LCP and minima
     flags (cpp:792-802), and the pairwise Weiner extension keeping pairs
     with >= 2 union children (cpp:529-553). chunk: (C, 13) = the 6
-    boundaries in each index, then the depth. The merged node's boundaries
-    are their sums (include.hpp:476-490)."""
+    boundaries in each index, then the depth."""
+    pos, v = node_pair_flags(chunk, stats, K, k_right)
+    # a singleton position gets its DA bit from exactly one node pair, and
+    # the LCP bits are written once each as in mode 1 (traverse.py:647-649),
+    # so the bits add without carries
+    flags.index_add_(0, pos, v)
+    ext1 = fm_ops.extend_coords(fm1, chunk[:, 0:6])  # (C, 4, 6)
+    ext2 = fm_ops.extend_coords(fm2, chunk[:, 6:12])
+    return node_pair_children(ext1, ext2, chunk)
+
+
+def node_pair_flags(chunk, stats, K: int, k_right: int):
+    """The nonzero flag values of node-pair rows (C, 13) and their merged
+    positions: the merged node's boundaries are the sums of the two sides'
+    (include.hpp:476-490). A child interval of one merged position is a
+    leaf (find_leaves); it counts as a DA value, and DA = 1 (bit 8) when it
+    comes from collection 2. Adds the nodes, LCP, minima and DA counts to
+    stats[0:4]."""
     c1 = chunk[:, 0:6]
     c2 = chunk[:, 6:12]
-    depth = chunk[:, 12:13]
     merged = c1 + c2
-    # find_leaves: a child interval of one merged position is a leaf; it
-    # counts as a DA value, and DA = 1 when it comes from collection 2
     l1 = c1[:, 1:] - c1[:, :-1]
     l2 = c2[:, 1:] - c2[:, :-1]
     single = (l1 + l2) == 1
     v = (single & (l2 == 1)).to(torch.uint8) * 8  # at merged[:, 0:5]
-    v[:, 1:] += _border_values(merged, depth, stats, K, k_right)
-    # a singleton position gets its DA bit from exactly one node pair, and
-    # the LCP bits are written once each as in mode 1 (traverse.py:647-649),
-    # so the bits add without carries
-    pos = merged[:, 0:5]
-    on = v > 0
-    flags.index_add_(0, pos[on], v[on])
+    v[:, 1:] += _border_values(merged, chunk[:, 12:13], stats, K, k_right)
     stats[0] += chunk.shape[0]
     stats[3] += single.sum()
+    on = v > 0
+    return merged[:, 0:5][on], v[on]
 
-    ext1 = fm_ops.extend_coords(fm1, c1)  # (C, 4, 6)
-    ext2 = fm_ops.extend_coords(fm2, c2)
+
+def node_pair_children(ext1, ext2, chunk):
+    """The Weiner extensions (C, 4, 13) of node-pair rows from each side's
+    extended boundaries (C, 4, 6), kept where the pair has >= 2 union
+    children."""
     union = (ext1[..., 1:] > ext1[..., :-1]) | (ext2[..., 1:] > ext2[..., :-1])
     children = torch.cat(
-        [ext1, ext2, (depth + 1)[:, None, :].expand(-1, 4, 1)], dim=-1)
+        [ext1, ext2, (chunk[:, 12:13] + 1)[:, None, :].expand(-1, 4, 1)],
+        dim=-1)
     return _char_major(children, union.sum(-1) >= 2)
 
 

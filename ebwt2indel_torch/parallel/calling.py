@@ -1,21 +1,24 @@
-"""Mode 1's calling over the sharded index and flags (counterpart of the
-mode-1 parts of ``ebwt2indel_tpu/parallel/calling.py``).
+"""The calling of all three modes over the sharded indexes and flags
+(counterpart of ``ebwt2indel_tpu/parallel/calling.py``).
 
 Cluster state (begins, ends, walk intervals) is O(#clusters) and every
 shard holds all of it, on ``mesh.device``; every rank and select is
 answered by the owning shard and combined by one ``psum``. The walk bodies
 are ``models/call.py``'s (``range_counts_core``, ``consensus_core``,
-``extract_dna_core``). Flags and the anchor table stay sharded in the
-traversal's partition: shard s holds positions [s * local_n, (s + 1) *
-local_n).
+``extract_dna_core``). Flags, the anchor table and the document array's
+rank structure (``ShardedBits``) stay sharded in the traversal's partition:
+shard s holds positions [s * local_n, (s + 1) * local_n).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from ..models import call, cluster
 from ..models import fm_index as fm_ops
+from ..ops import bits, rank
 from . import shard
 from .mesh import Mesh
 from .shard import ShardedFM
@@ -123,3 +126,59 @@ def first_thr_position_sharded(mesh: Mesh, next_set: dict,
     pos = mesh.psum(parts)
     found = pos < ends
     return torch.where(found, pos, 0), found
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedBits:
+    """A 0/1 vector (the document array) sharded in ``local_n``-position
+    slices: each shard's ``bits.bv_build`` words and counts over its own
+    slice, and the ones before each shard (S,) on ``mesh.device``."""
+
+    mesh: Mesh
+    words: dict
+    counts: dict
+    before: torch.Tensor
+    local_n: int
+
+
+def bv_build_sharded(mesh: Mesh, parts: dict, *,
+                     local_n: int) -> ShardedBits:
+    """The rank structure of a vector given as each local shard's
+    (local_n,) 0/1 slice: ``bits.bv_build`` per shard, and one gather of
+    the S shard totals, whose exclusive prefix makes a local rank
+    global."""
+    words, counts, totals = {}, {}, {}
+    for s in mesh.local:
+        words[s], counts[s] = bits.bv_build(parts[s])
+        totals[s] = (parts[s] != 0).sum(dtype=torch.int64)[None]
+    tot = torch.cat(mesh.all_gather(totals))
+    return ShardedBits(mesh=mesh, words=words, counts=counts,
+                       before=torch.cumsum(tot, 0) - tot, local_n=local_n)
+
+
+def bv_rank1_sharded(bv: ShardedBits, i: torch.Tensor) -> torch.Tensor:
+    """``rank.bv_rank1`` of positions every shard holds (0 <= i <= n), on
+    ``mesh.device``: the owner of i (i // local_n; a shard's right edge is
+    the next shard's local 0) answers its local rank plus the ones before
+    it, and one ``psum`` combines."""
+    mesh, L = bv.mesh, bv.local_n
+    parts = {}
+    for s in mesh.local:
+        q = i.to(mesh.devices[s]) - s * L
+        mine = (q >= 0) & (q < L)
+        r = rank.bv_rank1(bv.words[s], bv.counts[s], q.clamp(0, L - 1))
+        parts[s] = torch.where(mine, r + bv.before.to(q.device)[s], 0)
+    return mesh.psum(parts)
+
+
+def bv_get_sharded(bv: ShardedBits, i: torch.Tensor) -> torch.Tensor:
+    """``rank.bv_get`` of positions every shard holds (int64 0 or 1), on
+    ``mesh.device``."""
+    mesh, L = bv.mesh, bv.local_n
+    parts = {}
+    for s in mesh.local:
+        q = i.to(mesh.devices[s]) - s * L
+        mine = (q >= 0) & (q < L)
+        parts[s] = torch.where(
+            mine, rank.bv_get(bv.words[s], q.clamp(0, L - 1)), 0)
+    return mesh.psum(parts)

@@ -1,7 +1,8 @@
-"""Frontier-sharded traversal of mode 1 (counterpart of the mode-1 parts of
-``ebwt2indel_tpu/parallel/frontier.py``: ``_frontier_leaf_phase``,
-``_frontier_node_phase``, ``_route``, ``_combine_frontier`` and
-``navigate_one_bwt_frontier_device``).
+"""Frontier-sharded traversals of modes 1 and 3 (one index) and of mode 2
+(two indexes in lockstep): counterparts of ``ebwt2indel_tpu/parallel/
+frontier.py``'s ``navigate_one_bwt_frontier_device`` and
+``navigate_two_bwts_frontier_device``, with their phases, ``_route``,
+``_routed_pair_rank`` and combines.
 
 Each shard drives its own FIFO of rows from the host, as
 ``models/traverse.py::_run_phase`` does for one device, and every shard
@@ -10,22 +11,29 @@ over the mesh is 0. The writes do not depend on visit order
 (traverse.py:6-12 of the JAX package), so this is exact.
 
 * A node (a leaf) lives on the shard that owns the block row of its first
-  coordinate. A narrow one, whose coordinates span at most two blocks, is
-  extended by the rank kernel on the shard's own rows and halo row, with no
-  collective.
-* Flag and delta entries of narrow rows that land past the shard's right
-  edge (at most one block past it) go to the right neighbour (``shift``).
+  coordinate (in mode 2: of its side-1 first coordinate). A narrow one,
+  whose coordinates span at most two blocks, is extended by the rank kernel
+  on the shard's own rows and halo row, with no collective.
+* Mode 1: flag and delta entries of narrow rows that land past the shard's
+  right edge (at most one block past it) go to the right neighbour
+  (``shift``).
+* Mode 2: the flags and deltas are in merged positions, which have a
+  partition of their own (``merged_local_n``); every entry goes to the
+  shard that owns its merged position through an ``all_to_all``. A row's
+  side-2 boundaries are ranked by the shard that owns them in index 2: the
+  queries travel there with their source slot and the answers come back
+  (``_routed_rank``), two more ``all_to_all``s.
 * Wide rows are gathered on every shard (``all_gather``); each shard ranks
-  the coordinates it owns, one ``psum`` combines them, each shard writes the
-  entries that land in its range, and each pushes the wide rows' children
-  that it owns.
+  the coordinates it owns, one ``psum`` combines them, and each pushes the
+  wide rows' children that it owns. In mode 1 each shard also writes the
+  wide rows' entries that land in its range.
 * Narrow rows' children go to their owners in one ``all_to_all``.
 
-The bodies are ``models/traverse.py``'s: ``_border_values``, ``_char_major``
-and the exact int32-per-field leaf deltas (separate K and R vectors), so no
-depth bound and no fallback exist. After the leaf phase each shard's deltas
-become fills by a local prefix sum plus the exclusive prefix of the
-shards' totals.
+The bodies are ``models/traverse.py``'s: ``_border_values``, ``_char_major``,
+the pair helpers, and the exact int32-per-field leaf deltas (separate K, R
+and, in mode 2, DA vectors), so no depth bound and no fallback exist. After
+the leaf phase each shard's deltas become fills by a local prefix sum plus
+the exclusive prefix of the shards' totals.
 """
 
 from __future__ import annotations
@@ -64,6 +72,12 @@ def _drive(sfm: ShardedFM, width: int, init: torch.Tensor, step) -> int:
     return steps
 
 
+def _owner(sfm: ShardedFM, pos: torch.Tensor) -> torch.Tensor:
+    """The shard that owns the block row of each position of ``sfm``'s
+    index (n itself included, on the last shard)."""
+    return ((pos >> 7) // sfm.rows).clamp_max(sfm.mesh.size - 1)
+
+
 def _route(sfm: ShardedFM, children: dict, wide_children: torch.Tensor,
            out: dict) -> None:
     """Queue the children: the narrow rows' ``children`` to the owner of
@@ -71,9 +85,9 @@ def _route(sfm: ShardedFM, children: dict, wide_children: torch.Tensor,
     gathered wide rows' children (every process has them all) the ones that
     a local shard owns."""
     mesh = sfm.mesh
-    owner = {s: (c[:, 0] >> 7) // sfm.rows for s, c in children.items()}
+    owner = {s: _owner(sfm, c[:, 0]) for s, c in children.items()}
     got = mesh.all_to_all(children, owner)
-    w_owner = (wide_children[:, 0] >> 7) // sfm.rows
+    w_owner = _owner(sfm, wide_children[:, 0])
     for s in mesh.local:
         out[s] += [got[s], wide_children[w_owner == s].to(mesh.devices[s])]
 
@@ -151,14 +165,18 @@ def _delta_entries(leaves: torch.Tensor, K: int, k_right: int):
     on lane 0 (thr_K) where depth >= K and lane 1 (thr_R) where depth >=
     k_right."""
     first, second, depth = leaves.unbind(1)
-    parts = []
-    for lane, bound in enumerate((K, k_right)):
-        on = depth >= bound
-        lo, hi = first[on] + 1, second[on]
-        parts.append(torch.stack([
-            torch.cat([lo, hi]), torch.full_like(torch.cat([lo, hi]), lane),
-            torch.cat([torch.ones_like(lo), -torch.ones_like(hi)])], 1))
-    return torch.cat(parts)
+    return torch.cat([
+        _bound_entries(first[on] + 1, second[on], lane)
+        for lane, on in enumerate((depth >= K, depth >= k_right))])
+
+
+def _bound_entries(lo: torch.Tensor, hi: torch.Tensor, lane: int):
+    """(m, 3) [position, lane, value] entries: +1 at each lo, -1 at each
+    hi."""
+    idx = torch.cat([lo, hi])
+    return torch.stack([
+        idx, torch.full_like(idx, lane),
+        torch.cat([torch.ones_like(lo), -torch.ones_like(hi)])], 1)
 
 
 def _add_deltas(difs: list, ent: torch.Tensor, base: int, L: int):
@@ -220,13 +238,13 @@ def _leaf_step(sfm: ShardedFM, chunks: dict, difs: dict, stats: dict,
 
 
 def _fills(sfm: ShardedFM, difs: dict) -> dict:
-    """Each shard's thr_K and thr_R fills (bool): the local prefix sum of
-    its deltas plus the exclusive prefix of the shards' totals. ``difs`` is
-    emptied as it goes."""
+    """Each shard's fills (bool) of its delta vectors (thr_K, thr_R and, in
+    mode 2, DA): the local prefix sum of its deltas plus the exclusive
+    prefix of the shards' totals. ``difs`` is emptied as it goes."""
     mesh = sfm.mesh
     totals = torch.cat(mesh.all_gather(
         {s: torch.stack([d.sum(dtype=torch.int64) for d in difs[s]])[None]
-         for s in mesh.local}))  # (S, 2)
+         for s in mesh.local}))  # (S, lanes)
     fills = {}
     for s in mesh.local:
         before = totals[:s].sum(0).to(torch.int32).tolist()
@@ -278,3 +296,186 @@ def navigate_one_bwt_sharded(sfm: ShardedFM, K: int, k_right: int):
              "node_steps": node_steps, "leaf_seconds": t1 - t0,
              "node_seconds": t2 - t1}
     return thr_K, thr_R, minima, stats
+
+
+def merged_local_n(n: int, S: int) -> int:
+    """Positions per shard of a pair run's merged flags and document array
+    (n = n1 + n2): whole blocks, as in an index's partition, so that each
+    shard's DA words start at a block."""
+    return shard_ops._rows_per_shard(n, S) * 128
+
+
+def _routed_rank(sfm: ShardedFM, coords: dict) -> dict:
+    """The ranks (m, k, 4) of each local shard's narrow (m, k) coordinate
+    rows in ``sfm``'s index. Each row is decoded by the shard that owns the
+    block row of its first coordinate, on that shard's rows and halo: the
+    rows travel there with their source slot and shard through one
+    ``all_to_all``, and the answers come back through a second."""
+    mesh, L = sfm.mesh, sfm.local_n
+    k = next(iter(coords.values())).shape[1]
+    queries, dest = {}, {}
+    for s, c in coords.items():
+        slot = torch.arange(c.shape[0], device=c.device)[:, None]
+        queries[s] = torch.cat([c, slot, torch.full_like(slot, s)], 1)
+        dest[s] = _owner(sfm, c[:, 0])
+    answers, back = {}, {}
+    for d, q in mesh.all_to_all(queries, dest).items():
+        r = rank.parallel_rank(sfm.blocks[d], q[:, :k] - d * L)  # (m, k, 4)
+        answers[d] = torch.cat([q[:, k:k + 1], r.flatten(1)], 1)
+        back[d] = q[:, k + 1]
+    out = {}
+    for s, a in mesh.all_to_all(answers, back).items():
+        r = torch.empty((coords[s].shape[0], k, 4), dtype=torch.int64,
+                        device=a.device)
+        r[a[:, 0]] = a[:, 1:].reshape(-1, k, 4)
+        out[s] = r
+    return out
+
+
+def _add_merged(sfm: ShardedFM, entries: dict, Lm: int, add) -> None:
+    """Route each local shard's (m, w) entries [merged position, ...] to the
+    shard that owns the position in the merged partition, where
+    ``add(shard, entries)`` takes them."""
+    mesh = sfm.mesh
+    dest = {s: (e[:, 0] // Lm).clamp_max(mesh.size - 1)
+            for s, e in entries.items()}
+    for d, e in mesh.all_to_all(entries, dest).items():
+        add(d, e)
+
+
+def _split_narrow(chunk: torch.Tensor, ends: list):
+    """(narrow, wide) rows of a pair chunk: narrow rows span at most two
+    blocks on both sides; ``ends`` are the columns of side 1's first and
+    last coordinate, then side 2's."""
+    b = chunk[:, ends] >> 7
+    keep = ((b[:, 1] - b[:, 0]) <= 1) & ((b[:, 3] - b[:, 2]) <= 1)
+    return chunk[keep], chunk[~keep]
+
+
+def _leaf_pair_step(sfm1: ShardedFM, sfm2: ShardedFM, Lm: int, chunks: dict,
+                    difs: dict, stats: dict, K: int, k_right: int) -> dict:
+    """One mesh step of the leaf-pair phase (``_leaf_pair_body`` on every
+    shard): K, R and DA boundary deltas to their merged owners, then the
+    left extensions in both indexes."""
+    mesh = sfm1.mesh
+    entries, narrow, wide = {}, {}, {}
+    for s, chunk in chunks.items():
+        bounds = traverse.leaf_pair_bounds(chunk, stats[s], K, k_right)
+        entries[s] = torch.cat([_bound_entries(lo, hi, lane)
+                                for lane, (lo, hi) in enumerate(bounds)])
+        narrow[s], wide[s] = _split_narrow(chunk, [0, 1, 2, 3])
+    _add_merged(sfm1, entries, Lm,
+                lambda d, e: _add_deltas(difs[d], e, d * Lm, Lm))
+
+    r2 = _routed_rank(sfm2, {s: c[:, 2:4] for s, c in narrow.items()})
+    children = {s: traverse.leaf_pair_children(
+        sfm1.F.to(c.device), sfm2.F.to(c.device), c,
+        _narrow_rank(sfm1, s, c[:, 0:2]), r2[s]) for s, c in narrow.items()}
+
+    W = _gather_wide(sfm1, wide)  # (NW, 5)
+    w_children = W
+    if W.shape[0]:  # the same on every process
+        w_children = traverse.leaf_pair_children(
+            sfm1.F, sfm2.F, W, shard_ops.sharded_parallel_rank(sfm1, W[:, 0:2]),
+            shard_ops.sharded_parallel_rank(sfm2, W[:, 2:4]))
+
+    out = {s: [] for s in mesh.local}
+    _route(sfm1, children, w_children, out)
+    return out
+
+
+def _extend(F: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
+    """(C, 4, 6) extended boundaries from the ranks (C, 6, 4) of nodes'
+    boundaries (``fm_index.extend_coords``)."""
+    return F.to(ranks.device)[:, None] + ranks.transpose(1, 2)
+
+
+def _node_pair_step(sfm1: ShardedFM, sfm2: ShardedFM, Lm: int, chunks: dict,
+                    flags: dict, stats: dict, K: int, k_right: int) -> dict:
+    """One mesh step of the node-pair phase (``_node_pair_body`` on every
+    shard): the merged flags (DA bit of size-1 leaves, LCP borders, minima)
+    to their merged owners, then the Weiner extension in both indexes."""
+    mesh = sfm1.mesh
+    entries, narrow, wide = {}, {}, {}
+    for s, chunk in chunks.items():
+        pos, v = traverse.node_pair_flags(chunk, stats[s], K, k_right)
+        entries[s] = torch.stack([pos, v.to(torch.int64)], 1)
+        narrow[s], wide[s] = _split_narrow(chunk, [0, 5, 6, 11])
+    _add_merged(sfm1, entries, Lm, lambda d, e: flags[d].index_add_(
+        0, e[:, 0] - d * Lm, e[:, 1].to(torch.uint8)))
+
+    r2 = _routed_rank(sfm2, {s: c[:, 6:12] for s, c in narrow.items()})
+    children = {s: traverse.node_pair_children(
+        _extend(sfm1.F, _narrow_rank(sfm1, s, c[:, 0:6])),
+        _extend(sfm2.F, r2[s]), c) for s, c in narrow.items()}
+
+    W = _gather_wide(sfm1, wide)  # (NW, 13)
+    w_children = W
+    if W.shape[0]:  # the same on every process
+        w_children = traverse.node_pair_children(
+            _extend(sfm1.F, shard_ops.sharded_parallel_rank(sfm1, W[:, 0:6])),
+            _extend(sfm2.F, shard_ops.sharded_parallel_rank(sfm2, W[:, 6:12])),
+            W)
+
+    out = {s: [] for s in mesh.local}
+    _route(sfm1, children, w_children, out)
+    return out
+
+
+def navigate_two_bwts_sharded(sfm1: ShardedFM, sfm2: ShardedFM, K: int,
+                              k_right: int):
+    """Frontier-sharded lockstep navigation of two indexes on one mesh
+    (mode 2): the leaf-pair phase, then the node-pair phase, over n = n1 +
+    n2 merged positions partitioned in ``merged_local_n(n, S)`` positions a
+    shard. Refuses n >= ``packing.CAP`` before it allocates. Returns
+    (thr_K, thr_R, minima, da, stats): each a dict of the local shards'
+    uint8 vectors over their merged positions (0 past n), and ``stats`` the
+    counts of ``traverse.navigate_two_bwts`` (``da_values`` among them) plus
+    the mesh steps, ``comm_bytes_per_step`` (the bytes of the rows that the
+    ``all_to_all``s send to another shard, over the mesh, per step; the
+    wide rows' gathers are not in it) and the seconds of each phase."""
+    mesh = sfm1.mesh
+    n1, n2 = sfm1.n, sfm2.n
+    n = n1 + n2
+    shard_ops._check_mesh_cap(n)
+    Lm = merged_local_n(n, mesh.size)
+    dev = mesh.devices
+    routed = mesh.routed_bytes
+    t0 = time.perf_counter()
+    difs = {s: [torch.zeros(Lm, dtype=torch.int32, device=dev[s])
+                for _ in range(3)] for s in mesh.local}  # K, R, DA
+    st_l = {s: torch.zeros(3, dtype=torch.int64, device=dev[s])
+            for s in mesh.local}  # leaves, lcp, da
+    F1, F2 = sfm1.F.tolist(), sfm2.F.tolist()
+    leaf_steps = _drive(
+        sfm1, 5, torch.tensor([[0, F1[0], 0, F2[0], 0]]),
+        lambda c: _leaf_pair_step(sfm1, sfm2, Lm, c, difs, st_l, K, k_right))
+    fills = _fills(sfm1, difs)
+    mesh.synchronize()
+    t1 = time.perf_counter()
+
+    flags = {s: torch.zeros(Lm, dtype=torch.uint8, device=dev[s])
+             for s in mesh.local}
+    st_n = {s: torch.zeros(4, dtype=torch.int64, device=dev[s])
+            for s in mesh.local}  # nodes, lcp, n_min, da
+    node_steps = _drive(
+        sfm1, 13, torch.tensor([[0, *F1, n1, 0, *F2, n2, 0]]),
+        lambda c: _node_pair_step(sfm1, sfm2, Lm, c, flags, st_n, K,
+                                  k_right))
+    thr_K, thr_R, minima, da = {}, {}, {}, {}
+    for s in mesh.local:
+        thr_K[s], thr_R[s], minima[s], da[s] = traverse._combine_dense(
+            flags.pop(s), fills.pop(s))
+    mesh.synchronize()
+    t2 = time.perf_counter()
+
+    l = mesh.psum(st_l).tolist()
+    n_ = mesh.psum(st_n).tolist()
+    steps = leaf_steps + node_steps
+    stats = {"leaves": l[0], "nodes": n_[0], "lcp_values": 1 + l[1] + n_[1],
+             "n_min": n_[2], "da_values": l[2] + n_[3],
+             "leaf_steps": leaf_steps, "node_steps": node_steps,
+             "comm_bytes_per_step":
+                 mesh.psum_int(mesh.routed_bytes - routed) // max(steps, 1),
+             "leaf_seconds": t1 - t0, "node_seconds": t2 - t1}
+    return thr_K, thr_R, minima, da, stats

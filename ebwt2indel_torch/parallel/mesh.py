@@ -49,6 +49,9 @@ class Mesh:
                         for s, d in zip(self.local, devices)}
         # replicated values (psum results, gathered lists) live here
         self.device = self.devices[self.local[0]]
+        # bytes of the rows that this process's all_to_all calls sent to
+        # another shard (a diagnostic of the routing's traffic)
+        self.routed_bytes = 0
 
     def owner(self, s: int) -> int:
         return s // (self.size // self.nprocs)
@@ -121,6 +124,8 @@ class Mesh:
             cnt = torch.bincount(dest[s], minlength=S).tolist()
             pieces[s] = list(torch.split(rows[s][order], cnt))
             counts[s] = cnt
+            self.routed_bytes += (rows[s].shape[0] - cnt[s]) * \
+                rows[s].shape[1] * rows[s].element_size()
         if self.nprocs == 1:
             return {d: torch.cat([pieces[s][d].to(self.devices[d])
                                   for s in self.local]) for d in self.local}

@@ -214,3 +214,50 @@ def test_mesh_mode1_cuda_matches_cpu(tmp_path, rng):
         shard.sharded_parallel_rank(sfm, q.cuda()).cpu(),
         rank.parallel_rank_plain(torch.from_numpy(pb.blocks.view(np.int32)),
                                  q))
+
+
+def _mesh_pair_cuda_vs_cpu(tmp_path, rng, mode):
+    """A pair mode on a 4-shard mesh held on the one card writes the CPU's
+    single-device .snp with the same stats, and launches the kernel."""
+    _needs_cuda()
+    from ebwt2indel_torch.parallel import mesh
+    from ebwt2indel_torch.parallel import pipeline as mesh_pipeline
+
+    reads1, reads2 = _pair_reads(rng)
+    if mode == 3:
+        bwt, da = ebwt.ebwt_and_da_of_two(reads1, reads2)
+        (tmp_path / "m.ebwt").write_text(bwt)
+        (tmp_path / "m.da").write_text(da)
+        cfg_of = lambda out: Config(input1=str(tmp_path / "m.ebwt"),  # noqa: E731
+                                    input_da=str(tmp_path / "m.da"),
+                                    output=out)
+        one, sharded = (pipeline.run_two_datasets_da,
+                        mesh_pipeline.run_two_datasets_da_sharded)
+    else:
+        (tmp_path / "a.ebwt").write_text(ebwt.ebwt_of_reads(reads1))
+        (tmp_path / "b.ebwt").write_text(ebwt.ebwt_of_reads(reads2))
+        cfg_of = lambda out: Config(input1=str(tmp_path / "a.ebwt"),  # noqa: E731
+                                    input2=str(tmp_path / "b.ebwt"),
+                                    output=out)
+        one, sharded = (pipeline.run_two_datasets,
+                        mesh_pipeline.run_two_datasets_sharded)
+    want = tmp_path / "cpu.snp"
+    st_cpu = one(cfg_of(str(want)), log=lambda *a, **k: None, device="cpu")
+    before = rank_cuda.LAUNCHES["rank_decode"]
+    got = tmp_path / "mesh.snp"
+    st = sharded(cfg_of(str(got)), mesh.Mesh(4, device="cuda"),
+                 log=lambda *a, **k: None)
+    assert rank_cuda.LAUNCHES["rank_decode"] > before
+    assert got.read_bytes() == want.read_bytes() and want.read_bytes()
+    for k in ("events", "cluster_nr", "n_clusters", "lcp_values", "n_min"):
+        assert st[k] == st_cpu[k], k
+    if mode == 2:
+        assert st["da_values"] == st_cpu["da_values"]
+
+
+def test_mesh_mode3_cuda_matches_cpu(tmp_path, rng):
+    _mesh_pair_cuda_vs_cpu(tmp_path, rng, 3)
+
+
+def test_mesh_mode2_cuda_matches_cpu(tmp_path, rng):
+    _mesh_pair_cuda_vs_cpu(tmp_path, rng, 2)

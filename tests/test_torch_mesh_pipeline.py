@@ -1,8 +1,10 @@
-"""Mode 1 on the port's position mesh end to end: the .snp of
+"""The port's position mesh end to end: the mode-1 .snp of
 run_one_dataset_sharded at S = 1, 3 and 8 equals the JAX package's
 run_one_dataset_sharded on its 8-device virtual CPU mesh and the port's
 single-device .snp; the CLI switch (EBWT_MESH) in a subprocess; two gloo
-processes of two shards each joined through EBWT_COORD; and the refusals."""
+processes of two shards each joined through EBWT_COORD, in modes 1, 3 and
+2; the pair modes through the CLI switch; and the refusals (a checkpoint
+directory on a mesh, a forbidden character, no CUDA)."""
 
 import os
 import re
@@ -20,6 +22,7 @@ from ebwt2indel_torch import cli
 from ebwt2indel_torch.models import pipeline
 from ebwt2indel_torch.parallel import mesh
 from ebwt2indel_torch.parallel import pipeline as ppipe
+from ebwt2indel_torch.tools import ebwt, simulate
 from tests.test_parity import make_dataset
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -60,6 +63,41 @@ def test_sharded_snp_matches_jax_and_single_device(data, S):
                                   "cluster", "call_emit"}
 
 
+@pytest.fixture(scope="module")
+def pair(tmp_path_factory):
+    """A small pair input (3,000 bp, 6x of 80 bp reads per haplotype) as
+    two eBWTs (mode 2) and as a merged eBWT with its document array (mode
+    3), with the port's single-device .snp of each mode."""
+    d = tmp_path_factory.mktemp("torch_mesh_pair")
+    rng = np.random.default_rng(0x9A1)
+    genome = simulate.random_genome(rng, 3000)
+    hap2, _ = simulate.plant_variants(rng, genome, snp_rate=0.004,
+                                      indel_rate=0.001)
+    reads1 = simulate.sample_reads(rng, genome, 6, 80)
+    reads2 = simulate.sample_reads(rng, hap2, 6, 80)
+    p = {k: str(d / k) for k in ("a.ebwt", "b.ebwt", "m.ebwt", "m.da")}
+    open(p["a.ebwt"], "w").write(ebwt.ebwt_of_reads(reads1))
+    open(p["b.ebwt"], "w").write(ebwt.ebwt_of_reads(reads2))
+    bwt, da = ebwt.ebwt_and_da_of_two(reads1, reads2)
+    open(p["m.ebwt"], "w").write(bwt)
+    open(p["m.da"], "w").write(da)
+    args = {3: ["-1", p["m.ebwt"], "-d", p["m.da"]],
+            2: ["-1", p["a.ebwt"], "-2", p["b.ebwt"]]}
+    one = {}
+    for mode, run in ((3, pipeline.run_two_datasets_da),
+                      (2, pipeline.run_two_datasets)):
+        out = str(d / f"one{mode}.snp")
+        cfg = Config(input1=args[mode][1], output=out)
+        if mode == 3:
+            cfg.input_da = p["m.da"]
+        else:
+            cfg.input2 = p["b.ebwt"]
+        run(cfg, device="cpu", **_QUIET)
+        one[mode] = open(out, "rb").read()
+        assert one[mode]
+    return {"dir": d, "args": args, "one": one}
+
+
 def _port_cli(args, env_extra):
     env = dict(os.environ, PYTHONPATH=REPO, **env_extra)
     code = ("import sys; from ebwt2indel_torch import cli; "
@@ -80,16 +118,21 @@ def test_cli_mesh_switch_subprocess(data):
     assert open(out, "rb").read() == data["one"]
 
 
-def test_two_gloo_processes(data):
+@pytest.mark.parametrize("mode", [1, 3, 2])
+def test_two_gloo_processes(data, pair, mode):
     """Two processes of two shards each over gloo, joined through
     EBWT_COORD/EBWT_NPROCS/EBWT_PROCID: process 0's .snp and process 1's
-    replica equal the single-device .snp, and each process packed about
-    half the input."""
+    replica equal the single-device .snp of the mode, and each process
+    packed about half of input 1."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    out = str(data["dir"] / "dist.snp")
-    procs = [_port_cli(["-1", data["path"], "-o", out],
+    if mode == 1:
+        args, want, d = ["-1", data["path"]], data["one"], data["dir"]
+    else:
+        args, want, d = pair["args"][mode], pair["one"][mode], pair["dir"]
+    out = str(d / f"dist{mode}.snp")
+    procs = [_port_cli(args + ["-o", out],
                        {"EBWT_MESH": "4", "EBWT_COORD": f"localhost:{port}",
                         "EBWT_NPROCS": "2", "EBWT_PROCID": str(k)})
              for k in range(2)]
@@ -101,9 +144,9 @@ def test_two_gloo_processes(data):
     for p, (stdout, stderr) in zip(procs, outs):
         assert p.returncode == 0, f"{stdout}\n{stderr}"
         assert "(4-device mesh)" in stdout
-    assert open(out, "rb").read() == data["one"]
-    assert open(out + ".proc1", "rb").read() == data["one"]
-    n = os.path.getsize(data["path"])
+    assert open(out, "rb").read() == want
+    assert open(out + ".proc1", "rb").read() == want
+    n = os.path.getsize(args[1])
     packed = 0
     for k, (stdout, _) in enumerate(outs):
         m = re.search(r"\[loader\] process (\d+) packed (\d+)/(\d+)", stdout)
@@ -113,24 +156,31 @@ def test_two_gloo_processes(data):
     assert packed == n
 
 
-def test_mesh_refuses_pair_modes_and_bad_input(tmp_path, monkeypatch,
+def test_mesh_refuses_pair_modes_and_bad_input(pair, tmp_path, monkeypatch,
                                                capsys):
-    """Under EBWT_MESH > 1, -2 and -d exit 1 with an error that names the
-    next slice (no fallback to one device, no output); a forbidden
-    character gives the reference's message and exit 1; and the mesh, like
-    every entry point, needs CUDA unless the CPU is asked for."""
-    a = tmp_path / "a.ebwt"
-    a.write_text("AC#GT#")
-    da = tmp_path / "a.da"
-    da.write_text("010110")
+    """Under EBWT_MESH > 1, -2 and -d run on the mesh and write the single
+    device's .snp; with EBWT_CKPT_DIR set every mode exits 1 with an error
+    that names the missing piece and the way out (no output, no checkpoint:
+    the mesh has no resume yet); a forbidden character gives the
+    reference's message and exit 1; and the mesh, like every entry point,
+    needs CUDA unless the CPU is asked for."""
     out = tmp_path / "o.snp"
     monkeypatch.setenv("EBWT_MESH", "2")
-    for extra in (["-2", str(a)], ["-d", str(da)]):
-        assert cli.main(["-1", str(a), *extra, "-o", str(out)],
-                        device="cpu") == 1
+    for mode in (3, 2):
+        assert cli.main(pair["args"][mode] + ["-o", str(out)],
+                        device="cpu") == 0
+        assert "(2-device mesh)" in capsys.readouterr().out
+        assert out.read_bytes() == pair["one"][mode]
+        out.unlink()
+    ckpt = tmp_path / "ckpt"
+    monkeypatch.setenv("EBWT_CKPT_DIR", str(ckpt))
+    for args in (pair["args"][3][:2], pair["args"][3], pair["args"][2]):
+        assert cli.main(args + ["-o", str(out)], device="cpu") == 1
         err = capsys.readouterr().err
-        assert "do not run on a mesh yet" in err and "next slice" in err
-        assert not out.exists()
+        assert "checkpoint/resume does not run on a mesh yet" in err
+        assert "Unset EBWT_MESH or EBWT_CKPT_DIR" in err
+        assert not out.exists() and not ckpt.exists()
+    monkeypatch.delenv("EBWT_CKPT_DIR")
     bad = tmp_path / "bad.ebwt"
     bad.write_text("ACGT#ACNGT#")
     assert cli.main(["-1", str(bad), "-o", str(out)], device="cpu") == 1
