@@ -21,8 +21,9 @@ Phases, each of which must pass (the script exits 1 otherwise):
 6. the rank kernel timed against its plain version at the main path's shape:
    the first node chunk (256k nodes x 6 boundaries) of the full-size index;
 7. three more full-size CUDA runs for the spread of the wall and phase times
-   (median, min, max), then one under ``torch.profiler``: device time by
-   kernel name and the device's busy share of the run;
+   (median, min, max), then one with ``EBWT_PROFILE`` set, whose trace the
+   port's ``tracetop`` reads: device time by kernel name and by phase, and
+   the device's busy share of the run;
 8. modes 3 and 2 on CUDA against the CPU on the pair data of phase 3's
    recipe (the two haplotypes' reads as two collections): byte-identical
    .snp and equal stats;
@@ -32,7 +33,8 @@ Phases, each of which must pass (the script exits 1 otherwise):
 10. modes 3 (``-1 merged.ebwt -d merged.da``) and 2 (``-1 a.ebwt -2
     b.ebwt``) at full size through ``cli.main`` on CUDA, each with the
     kernel's launch count reset just before and read just after; then three
-    more runs of each for the spread, and one of each under the profiler;
+    more runs of each for the spread, and one of each with ``EBWT_PROFILE``
+    (as in phase 7);
 11. ``packed_116M``: modes 1, 3 and 2 at full size on the dense and on the
     bit-packed route (``packed=``), each run with the launch counts reset
     just before and read just after: the .snp of both routes must equal the
@@ -78,14 +80,29 @@ Phases, each of which must pass (the script exits 1 otherwise):
     way on phase 9's pair data: each .snp sha256 must equal phase 10's, and
     the stats too (mode 2: with its DA values, leaves and nodes); the same
     records, and for mode 2 the routed bytes per mesh step;
-20. ``mesh_ckpt_refused``: ``EBWT_MESH=4`` with ``EBWT_CKPT_DIR`` set exits 1
-    in each mode with the named error and writes no .snp. Where the host
-    has two cards or more, modes 1, 3 and 2 at full size as two NCCL
-    processes of two shards each (``mesh_nccl_2proc``); with one card that
-    phase does not run, and a line says so;
-21. ``mesh4_mode1_1G``: mode 1 with ``EBWT_MESH=4`` on phase 12's
+20. ``mesh4_resume_mode1_116M`` and ``mesh4_resume_mode2_116M``: modes 1 and
+    2 with ``EBWT_MESH=4`` through ``cli.main``: a run without a checkpoint
+    directory counts the node (node-pair) mesh steps; a run with
+    ``EBWT_CKPT_DIR`` set is killed in that phase after its second save (a
+    wrapped step function raises); the run started again resumes. Its .snp
+    sha256 must equal phase 4's (phase 10's), its stats too (mesh steps and
+    mode 2's routed bytes per step among them), it must take the node steps
+    less 2 x the save interval, launch ``rank_decode``, and leave the
+    checkpoint directory empty; the bytes and seconds of each save, the
+    killed run's seconds and the resumed run's wall (the time to recover).
+    Where the host has two cards or more, modes 1, 3 and 2 at full size as
+    two NCCL processes of two shards each (``mesh_nccl_2proc``); with one
+    card that phase does not run, and a line says so;
+21. ``index_cache_116M``: modes 1 and 2 with ``EBWT_INDEX_CACHE=1``, cold
+    (the ``.idx.npz`` sidecars written) and warm (read; packing fails the
+    phase): each .snp equal to phase 4's (phase 10's); ``index`` seconds of
+    both, the sidecars' bytes and the seconds of their writes;
+22. ``mesh4_mode1_1G``: mode 1 with ``EBWT_MESH=4`` on phase 12's
     1,050,398,182 positions: the .snp must equal phase 12's dense-route
-    .snp, with equal stats.
+    .snp, with equal stats;
+23. ``index_cache_1G``: phase 12's input packed into its sidecar, then mode
+    1 through ``cli.main`` with ``EBWT_INDEX_CACHE=1`` reading it (packing
+    fails the phase): the .snp must equal phase 12's.
 
 It prints the per-kernel JSON line, then the card line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -102,6 +119,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -416,37 +434,60 @@ def phase_repeats(results: dict, data_dir: str, reps: int = 3,
 
 
 def phase_profile(results: dict, data_dir: str, mode: int = 1) -> None:
-    """Device time by kernel over one profiled full-size CUDA run."""
-    from collections import defaultdict
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Device time by kernel and by phase over one full-size CUDA run with
+    ``EBWT_PROFILE`` set, read by the port's ``tracetop``."""
+    from ebwt2indel_torch.tools import tracetop
 
     r = results if mode == 1 else results[f"mode{mode}"]
-    tag = "" if mode == 1 else f"_mode{mode}"
-    out = os.path.join(data_dir, f"full_profiled{tag}.snp")
+    prof_dir = os.path.join(data_dir, f"profile_mode{mode}")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    out = os.path.join(data_dir, f"full_profiled_mode{mode}.snp")
+    os.environ["EBWT_PROFILE"] = prof_dir
     t0 = time.perf_counter()
-    # device activity only: the host-side events cost tens of seconds of
-    # post-processing per run and are not read
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    try:
         RUNS[mode](r["full_path"], out, "cuda")
-        torch.cuda.synchronize()
+    finally:
+        del os.environ["EBWT_PROFILE"]
     wall = time.perf_counter() - t0
-    by_name: dict[str, float] = defaultdict(float)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
-    if not by_name:
-        log("[profile] the profiler recorded no device time: not measured")
+    t0 = time.perf_counter()
+    trace = tracetop.newest_trace(prof_dir)
+    top = tracetop.summarize(tracetop.load_events(trace), 12)
+    log(f"[profile] mode {mode}: trace of {os.path.getsize(trace)} bytes "
+        f"read by tracetop in {time.perf_counter() - t0:.1f} s")
+    if open(out, "rb").read() != open(r["full_out"], "rb").read():
+        raise AssertionError("the profiled run wrote another .snp")
+    if not top["device"]:
+        log("[profile] the trace holds no device time: not measured")
         return
+    busy = top["busy_ms"]
     log(f"[profile] mode {mode}: device busy {busy:.1f} ms over "
-        f"{wall * 1e3:.1f} ms of profiled wall "
+        f"{wall * 1e3:.1f} ms of profiled wall, the trace's export included "
         f"({100 * busy / (wall * 1e3):.1f}%); unprofiled wall "
         f"{r['full_wall'] * 1e3:.1f} ms")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"[profile] {ms:10.3f} ms  {100 * ms / busy:5.1f}%  {name[:110]}")
+    for name, ms, count in top["kernels"]:
+        log(f"[profile] {ms:10.3f} ms  {100 * ms / busy:5.1f}%  {count:6d}  "
+            f"{name[:100]}")
+    in_phases = sum(p["busy_ms"] for p in top["phases"].values())
+    log(f"[profile] mode {mode}: {top['linked']} device events placed in "
+        f"phases by their launch; {in_phases:.3f} ms of the device time in "
+        "the five phases")
+    for name, p in top["phases"].items():
+        log(f"[profile] mode {mode} phase {name}: device {p['busy_ms']:.3f} "
+            f"ms of a {p['span_ms']:.3f} ms span")
+    missing = {"index", "leaf_phase", "node_phase", "cluster",
+               "call_emit"} - set(top["phases"])
+    if missing:
+        raise AssertionError(f"phases not marked in the trace: {missing}")
+    # a phase ends with a device synchronise, so the device time of the
+    # kernels it launched fits in its span, and the five phases hold nearly
+    # all of the run's: more in a phase, or less in all, means misplaced
+    # events
+    over = [name for name, p in top["phases"].items()
+            if p["busy_ms"] > 1.02 * p["span_ms"] + 1.0]
+    if over or in_phases < 0.95 * busy:
+        raise AssertionError(f"device time misplaced: over the span in "
+                             f"{over}, {in_phases:.3f} of {busy:.3f} ms in "
+                             "the phases")
 
 
 def run_mode3(paths: dict, out: str, device: str, packed=None):
@@ -1057,34 +1098,250 @@ def phase_mesh(label: str, args: list, want_out: str, want_stats: dict,
         f"equal: {', '.join(keys)}")
 
 
-def phase_mesh_ckpt_refused(results: dict, data_dir: str) -> None:
-    """EBWT_MESH=4 with EBWT_CKPT_DIR set: ``cli.main`` exits 1 in each
-    mode with the named error, and writes no .snp."""
-    from ebwt2indel_torch import cli
+def phase_mesh_resume(results: dict, mode: int, data_dir: str,
+                      log_dir: str) -> None:
+    """Mode 1 or 2 with EBWT_MESH=4 through ``cli.main``: a run that counts
+    the node phase's mesh steps, a run with EBWT_CKPT_DIR killed in that
+    phase after its second save, and the resumed run."""
+    from ebwt2indel_torch.parallel import frontier
 
-    paths = results["pair_paths"]
-    ckpt_dir = os.path.join(data_dir, "ckpt_mesh")
-    out = os.path.join(data_dir, "mesh_ckpt_refused.snp")
-    if os.path.exists(out):
-        os.remove(out)
-    os.environ.update(EBWT_MESH="4", EBWT_CKPT_DIR=ckpt_dir)
+    label = f"mesh4_resume_mode{mode}_116M"
+    step_name, tag = (("_node_step", "m1node") if mode == 1
+                      else ("_node_pair_step", "pnode"))
+    if mode == 1:
+        args, want_out = ["-1", results["full_path"]], results["full_out"]
+        want = results["full_stats"]
+    else:
+        args = _pair_args(results["pair_paths"], mode)
+        want_out, want = (results[f"mode{mode}"][k]
+                          for k in ("full_out", "stats"))
+    ckpt_dir = os.path.join(data_dir, f"ckpt_{label}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out = os.path.join(data_dir, f"{label}.snp")
+    saves: list[tuple] = []  # (tag, bytes, seconds)
+    wire = {"armed": False, "steps": 0}
+    real_save = frontier._MeshCheckpoint.save
+    real_step = getattr(frontier, step_name)
+
+    def save(ckpt, *a):
+        t = time.perf_counter()
+        real_save(ckpt, *a)
+        saves.append((ckpt.tag, os.path.getsize(ckpt.path),
+                      time.perf_counter() - t))
+
+    def step(*a, **k):
+        if wire["armed"] and sum(t == tag for t, _, _ in saves) >= 2:
+            raise _Preempted
+        wire["steps"] += 1
+        return real_step(*a, **k)
+
+    def run(every=None):
+        env = {"EBWT_MESH": "4"}
+        if every is not None:
+            env.update(EBWT_CKPT_DIR=ckpt_dir, EBWT_CKPT_EVERY=str(every))
+        os.environ.update(env)
+        try:
+            r = _cli_run(args + ["-o", out],
+                         os.path.join(log_dir, f"chip_smoke_cli_{label}.log"))
+        finally:
+            for k in env:
+                del os.environ[k]
+        text = r["text"]
+        r["stats"] = (_mode1_log(text) if mode == 1
+                      else _pair_log(text, open(out, "rb").read(), mode))
+        r["stats"]["mesh_steps"] = _grab(r"\((\d+) and (\d+) mesh steps",
+                                         text, int)
+        if mode == 2:
+            (r["stats"]["routed"],) = _grab(r"(\d+) routed bytes per step",
+                                            text, int)
+        return r
+
+    frontier._MeshCheckpoint.save = save
+    setattr(frontier, step_name, step)
     try:
-        for mode, args in ((1, ["-1", results["full_path"]]),
-                           (3, _pair_args(paths, 3)),
-                           (2, _pair_args(paths, 2))):
-            err = io.StringIO()
-            with contextlib.redirect_stdout(io.StringIO()), \
-                    contextlib.redirect_stderr(err):
-                rc = cli.main(args + ["-o", out], device="cuda")
-            msg = err.getvalue().strip()
-            log(f"[mesh_ckpt_refused] mode {mode}: exit {rc}; {msg}")
-            if rc != 1 or "checkpoint/resume does not run on a mesh yet" \
-                    not in msg or os.path.exists(out) or \
-                    os.path.exists(ckpt_dir):
-                raise AssertionError(f"mode {mode}: the mesh did not refuse "
-                                     "EBWT_CKPT_DIR aloud")
+        counted = run()
+        total = wire["steps"]
+        every = max(1, total // 3)
+        wire.update(armed=True, steps=0)
+        t0 = time.perf_counter()
+        try:
+            run(every)
+            raise AssertionError("the trip wire did not fire")
+        except _Preempted:
+            pass
+        killed = time.perf_counter() - t0
+        files = sorted(os.listdir(ckpt_dir))
+        first = list(saves)
+        wire.update(armed=False, steps=0)
+        saves.clear()
+        resumed = run(every)
+        resumed_steps = wire["steps"]
     finally:
-        del os.environ["EBWT_MESH"], os.environ["EBWT_CKPT_DIR"]
+        frontier._MeshCheckpoint.save = real_save
+        setattr(frontier, step_name, real_step)
+    for what, ss in (("killed run", first), ("resumed run", saves)):
+        for t in sorted({t for t, _, _ in ss}):
+            log(f"[{label}] {what}: {sum(x == t for x, _, _ in ss)} saves of "
+                f"frontier_{t}, bytes {[b for x, b, _ in ss if x == t]}, "
+                f"seconds {[round(s_, 4) for x, _, s_ in ss if x == t]}")
+    st = resumed["stats"]
+    log(f"[{label}] uninterrupted run {counted['wall']:.4f} s, {total} "
+        f"node mesh steps, a save every {every}; killed after "
+        f"{killed:.4f} s with {files}; resumed run (the time to recover) "
+        f"{resumed['wall']:.4f} s, {resumed_steps} node mesh steps, "
+        f"rank_decode {resumed['launches']['rank_decode']} launches and "
+        f"{resumed['queries']['rank_decode']} queries; phase seconds "
+        f"{st['seconds']}; mesh steps {st['mesh_steps']}"
+        + (f"; routed bytes per step {st['routed']}" if mode == 2 else ""))
+    got = open(out, "rb").read()
+    log(f"[{label}] .snp sha256 {hashlib.sha256(got).hexdigest()}")
+    if got != open(want_out, "rb").read():
+        raise AssertionError(f"{label}: the resumed .snp differs from the "
+                             "single-device run's")
+    keys = [k for k in want if k not in ("seconds", "n")]
+    for k in keys:
+        if st[k] != want[k]:
+            raise AssertionError(f"{label} {k}: resumed {st[k]} != "
+                                 f"single-device {want[k]}")
+    for k in ("mesh_steps",) + (("routed",) if mode == 2 else ()):
+        if st[k] != counted["stats"][k]:
+            raise AssertionError(f"{label} {k}: resumed {st[k]} != "
+                                 f"uninterrupted {counted['stats'][k]}")
+    if files != sorted([f"frontier_{tag}.p0.pt", f"frontier_{tag}.p0.prev.pt"]):
+        raise AssertionError(f"{label}: after the kill {files}")
+    if resumed_steps != total - 2 * every:
+        raise AssertionError(f"{label}: the resumed run took {resumed_steps} "
+                             f"node mesh steps, not {total} - 2 x {every}")
+    if resumed["launches"]["rank_decode"] <= 0:
+        raise AssertionError(f"{label}: rank_decode never launched")
+    if os.listdir(ckpt_dir):
+        raise AssertionError(f"{label}: checkpoint left behind: "
+                             f"{os.listdir(ckpt_dir)}")
+    log(f"[{label}] .snp byte-identical to the single-device run's, stats "
+        f"equal ({', '.join(keys)}, mesh steps"
+        + (", routed bytes per step" if mode == 2 else "")
+        + "), checkpoint directory empty")
+
+
+def _no_pack(*a, **k):
+    raise AssertionError("packed although its sidecar was there")
+
+
+@contextlib.contextmanager
+def _index_cache(writes: list):
+    """EBWT_INDEX_CACHE=1, with each sidecar write's (bytes, seconds)
+    appended to ``writes``."""
+    from ebwt2indel_torch.ops import packing
+
+    real = packing.save_packed
+
+    def save(pb, path):
+        t = time.perf_counter()
+        real(pb, path)
+        writes.append((os.path.getsize(path), time.perf_counter() - t))
+
+    packing.save_packed = save
+    os.environ["EBWT_INDEX_CACHE"] = "1"
+    try:
+        yield packing
+    finally:
+        packing.save_packed = real
+        del os.environ["EBWT_INDEX_CACHE"]
+
+
+def phase_index_cache_116m(results: dict, data_dir: str) -> None:
+    """Modes 1 and 2 with EBWT_INDEX_CACHE=1, cold then warm: each .snp
+    equals the uncached run's."""
+    for mode in (1, 2):
+        r = results if mode == 1 else results[f"mode{mode}"]
+        inputs = ([r["full_path"]] if mode == 1 else
+                  [r["full_path"][k] for k in ("a.ebwt", "b.ebwt")])
+        for path in inputs:
+            if os.path.exists(path + ".idx.npz"):
+                os.remove(path + ".idx.npz")
+        want = open(r["full_out"], "rb").read()
+        writes: list = []
+        runs = {}
+        with _index_cache(writes) as packing:
+            for temp in ("cold", "warm"):
+                out = os.path.join(data_dir, f"index_cache_mode{mode}_"
+                                             f"{temp}.snp")
+                real_pack = packing.pack_file
+                if temp == "warm":
+                    packing.pack_file = _no_pack
+                try:
+                    runs[temp] = _measured_run(mode, r["full_path"], out,
+                                               None)
+                finally:
+                    packing.pack_file = real_pack
+                if temp == "cold":
+                    written = list(writes)
+        for temp, x in runs.items():
+            log(f"[index_cache_116M] mode {mode} {temp}: index "
+                f"{x['stats']['seconds']['index']:.4f} s, wall "
+                f"{x['wall']:.4f} s, rank_decode {x['launches']} launches")
+            if x["snp"] != want:
+                raise AssertionError(f"mode {mode} {temp}: the .snp differs "
+                                     "from the uncached run's")
+            if x["launches"] <= 0:
+                raise AssertionError(f"mode {mode} {temp}: rank_decode "
+                                     "never launched")
+        log(f"[index_cache_116M] mode {mode}: sidecars (bytes, seconds of "
+            f"the write) {[(b, round(t, 4)) for b, t in written]}; the "
+            f"uncached cli.main run's index "
+            f"{r['full_stats' if mode == 1 else 'stats']['seconds']['index']}"
+            f" s (log, 0.01 s)")
+        if len(written) != len(inputs) or len(writes) != len(inputs):
+            raise AssertionError(f"mode {mode}: {len(written)} sidecars "
+                                 f"written cold, {len(writes)} in all")
+        for path in inputs:
+            os.remove(path + ".idx.npz")
+        log(f"[index_cache_116M] mode {mode}: cold and warm .snp "
+            "byte-identical to the uncached run's")
+
+
+def phase_index_cache_1g(results: dict, data_dir: str, log_dir: str) -> None:
+    """Phase 12's input packed into its sidecar, then mode 1 through
+    ``cli.main`` with EBWT_INDEX_CACHE=1 reading it."""
+    h = results["huge"]
+    path = h["path"]
+    if os.path.exists(path + ".idx.npz"):
+        os.remove(path + ".idx.npz")
+    out = os.path.join(data_dir, "huge_1g_index_cache.snp")
+    writes: list = []
+    with _index_cache(writes) as packing:
+        t0 = time.perf_counter()
+        packing.pack_file_cached(path)
+        cold = time.perf_counter() - t0
+        real_pack = packing.pack_file
+        packing.pack_file = _no_pack
+        try:
+            r = _cli_run(["-1", path, "-o", out],
+                         os.path.join(log_dir, "chip_smoke_cli_1g_cache.log"))
+        finally:
+            packing.pack_file = real_pack
+    st = _mode1_log(r["text"])
+    got = open(out, "rb").read()
+    log(f"[index_cache_1G] {h['n']} positions: pack and sidecar write "
+        f"{cold:.3f} s, of which the write {writes[0][1]:.3f} s for "
+        f"{writes[0][0]} bytes; the cached run: index "
+        f"{st['seconds']['index']} s (log, 0.01 s; uncached "
+        f"{h['stats']['seconds']['index']} s), wall {r['wall']:.4f} s, "
+        f"phases {st['seconds']}, peak {r['peak']} bytes, rank_decode "
+        f"{r['launches']['rank_decode']} launches; .snp sha256 "
+        f"{hashlib.sha256(got).hexdigest()}")
+    os.remove(path + ".idx.npz")
+    if got != open(h["out"], "rb").read():
+        raise AssertionError("the cached 1.05G .snp differs from "
+                             "scale_mode1_1G's")
+    for k in _COMPARED:
+        if st[k] != h["stats"][k]:
+            raise AssertionError(f"cached 1.05G {k}: {st[k]} != "
+                                 f"{h['stats'][k]}")
+    if r["launches"]["rank_decode"] <= 0:
+        raise AssertionError("the cached 1.05G run launched no rank_decode")
+    log("[index_cache_1G] .snp byte-identical to scale_mode1_1G's, stats "
+        f"equal: {', '.join(_COMPARED)}")
 
 
 def phase_mesh_nccl(results: dict, data_dir: str, log_dir: str) -> None:
@@ -1266,8 +1523,14 @@ def main() -> int:
                       _pair_args(results["pair_paths"], mode), r["full_out"],
                       r["stats"], r["n"], data_dir,
                       os.path.join(here, args.log_dir), mode)
+        if "launches" in results:
+            phase("mesh4_resume_mode1_116M", phase_mesh_resume, results, 1,
+                  data_dir, os.path.join(here, args.log_dir))
+        if "mode2" in results:
+            phase("mesh4_resume_mode2_116M", phase_mesh_resume, results, 2,
+                  data_dir, os.path.join(here, args.log_dir))
         if all(k in results for k in ("launches", "mode3", "mode2")):
-            phase("mesh_ckpt_refused", phase_mesh_ckpt_refused, results,
+            phase("index_cache_116M", phase_index_cache_116m, results,
                   data_dir)
             if torch.cuda.device_count() >= 2:
                 phase("mesh_nccl_2proc", phase_mesh_nccl, results, data_dir,
@@ -1282,6 +1545,8 @@ def main() -> int:
             h = results["huge"]
             phase("mesh4_mode1_1G", phase_mesh, "mesh4_mode1_1G",
                   ["-1", h["path"]], h["out"], h["stats"], h["n"], data_dir,
+                  os.path.join(here, args.log_dir))
+            phase("index_cache_1G", phase_index_cache_1g, results, data_dir,
                   os.path.join(here, args.log_dir))
     log(f"[done] {time.perf_counter() - t0:.1f} s; failed phases: "
         f"{failures or 'none'}")

@@ -9,19 +9,26 @@ ebwt2InDel.cpp:76-103 help text, 1677-1823 main). Counterpart of
 The traversal's checkpoint and resume is set, as in the JAX package, by
 ``EBWT_CKPT_DIR`` (the directory; a run there resumes a killed one) and
 ``EBWT_CKPT_EVERY`` (save every that many chunks of up to
-``traverse.CHUNK`` rows; the JAX package counts dispatches of up to 256
-chunks).
+``traverse.CHUNK`` rows, on a mesh every that many mesh steps; the JAX
+package counts dispatches of up to 256 chunks).
 
 ``EBWT_MESH=<S>`` runs any of the three modes on a position mesh of S
 shards (``parallel/``; the same ``.snp`` bytes), all of them on ``device``
 unless ``EBWT_COORD``, ``EBWT_NPROCS`` and ``EBWT_PROCID`` join several
 processes (``parallel/launch.py``), which then hold S / processes shards
 each (S defaults to the number of processes) and of which only process 0
-writes the output. The mesh has no checkpoint and resume yet, so a mesh run
-with ``EBWT_CKPT_DIR`` set exits 1 (every process, before any joins a
-group) rather than run without it. An environment switch, not a flag,
-keeps the optstring the reference's. This is the only place the port reads
-these variables.
+writes the output. A mesh run saves and resumes too: each process writes
+its own checkpoint files, so ``EBWT_CKPT_DIR`` may be a directory local to
+each host. An environment switch, not a flag, keeps the optstring the
+reference's. This is the only place the port reads these variables.
+
+Three switches of the JAX package act deeper, where it reads them too,
+each when a run or phase starts: ``EBWT_INDEX_CACHE`` (the packed index
+from or to an ``<input>.idx.npz`` sidecar, ``FMIndex.from_file``: modes 1
+and 2 on one device), ``EBWT_PROFILE=<dir>`` (a trace of each single-device
+run, ``utils/profile.py``, read by ``tools/tracetop.py``) and
+``EBWT_PROGRESS`` (a line per traversal chunk on one device,
+``traverse._run_phase``).
 """
 
 from __future__ import annotations
@@ -162,30 +169,21 @@ def main(argv=None, *, device="cuda") -> int:
     print()
 
     n_mesh = int(os.environ.get("EBWT_MESH", "0") or 0)
-    ckpt_dir = os.environ.get("EBWT_CKPT_DIR") or None
+    ckpt = {"ckpt_dir": os.environ.get("EBWT_CKPT_DIR") or None,
+            "ckpt_every": int(os.environ.get("EBWT_CKPT_EVERY", 0))}
     try:
-        if ckpt_dir and (n_mesh > 1 or launch.distributed_requested()):
-            # refused before any process joins a group, so none waits
-            raise NotImplementedError(
-                f"EBWT_CKPT_DIR={ckpt_dir}: checkpoint/resume does not run "
-                "on a mesh yet, and a mesh run would not save or resume. "
-                "Unset EBWT_MESH or EBWT_CKPT_DIR (and EBWT_COORD).")
         if launch.distributed_requested():
             device = launch.init_from_env(device)
             n_mesh = n_mesh or launch.process_count()
             cfg = launch.redirect_output(cfg)
         if n_mesh > 1:
-            run_sharded(cfg, mesh.Mesh(n_mesh, device=device))
+            run_sharded(cfg, mesh.Mesh(n_mesh, device=device), **ckpt)
         else:
-            run(cfg, device=device, ckpt_dir=ckpt_dir,
-                ckpt_every=int(os.environ.get("EBWT_CKPT_EVERY", 0)))
+            run(cfg, device=device, **ckpt)
     except ValueError as e:
         # e.g. forbidden character in the input BWT — the reference prints the
         # message and exits 1 (dna_string.hpp:90-96)
         print(e)
-        return 1
-    except NotImplementedError as e:
-        print(f"Error: {e}", file=sys.stderr)
         return 1
     finally:
         if launch.distributed_requested():

@@ -12,6 +12,7 @@ card each one is a launch of the CUDA rank kernel.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -65,7 +66,13 @@ class FMIndex:
 
     @staticmethod
     def from_file(path: str, term: int = ord("#"), device="cuda") -> "FMIndex":
-        return FMIndex.from_packed(packing.pack_file(path, term), device)
+        """Pack and upload an eBWT file; with ``EBWT_INDEX_CACHE`` set (read
+        at each call, as the JAX package's ``from_file`` does) the packed
+        index comes from or goes to its ``<path>.idx.npz`` sidecar
+        (``packing.pack_file_cached``) and is uploaded like a fresh one."""
+        pack = packing.pack_file_cached if os.environ.get(
+            "EBWT_INDEX_CACHE") else packing.pack_file
+        return FMIndex.from_packed(pack(path, term), device)
 
     def root(self) -> torch.Tensor:
         """Root suffix-tree node (dna_bwt.hpp:296-308)."""

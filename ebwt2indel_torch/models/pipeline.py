@@ -9,7 +9,8 @@ wavefront (traverse.py), cluster detection (cluster.py), the filter,
 consensus and right-context walks (call.py), and host emission
 (emit_vec.py). The log lines are the JAX package's, plus timing lines; each
 run returns ``stats["seconds"]``, the wall time of each phase, each ended by
-a device synchronise.
+a device synchronise. ``EBWT_PROFILE=<dir>`` traces each run
+(``utils/profile.py``), each of those phases marked.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from .. import device as device_mod
 from ..ops import bits, packing, rank
 from ..utils import dna
 from ..utils.config import Config
+from ..utils.profile import phase, profiled
 from . import call, cluster, emit, emit_vec, traverse
 from .fm_index import FMIndex
 
@@ -68,6 +70,7 @@ def _anchor_and_clusters(res: traverse.TraversalResult, n: int,
             cluster.find_clusters_device(res.thr_K, res.minima, mcov_out))
 
 
+@profiled
 def run_one_dataset(cfg: Config, log=_log, device="cuda",
                     packed: bool | None = None, ckpt_dir=None,
                     ckpt_every: int = 0) -> dict:
@@ -82,8 +85,9 @@ def run_one_dataset(cfg: Config, log=_log, device="cuda",
     seconds = {}
     t0 = time.perf_counter()
     log("Phase 1/4: loading and indexing eBWT ... ")
-    fm = FMIndex.from_file(cfg.input1, cfg.term, dev)
-    device_mod.synchronize(dev)
+    with phase("index"):
+        fm = FMIndex.from_file(cfg.input1, cfg.term, dev)
+        device_mod.synchronize(dev)
     t1 = time.perf_counter()
     seconds["index"] = t1 - t0
     log(f"done. [{t1 - t0:.2f}s]")
@@ -105,14 +109,16 @@ def run_one_dataset(cfg: Config, log=_log, device="cuda",
 
     log("Phase 4/4: detecting SNPs and indels.")
     log(f"Output events will be stored in {cfg.output}")
-    next_thr, cl = _anchor_and_clusters(res, fm.n, cfg.mcov_out)
-    del res
-    device_mod.synchronize(dev)
+    with phase("cluster"):
+        next_thr, cl = _anchor_and_clusters(res, fm.n, cfg.mcov_out)
+        del res
+        device_mod.synchronize(dev)
     t4 = time.perf_counter()
     seconds["cluster"] = t4 - t2
     log(f"[timing] cluster detect (device) {t4 - t2:.2f}s")
 
-    stats = _call_and_emit_single(fm, cl, next_thr, cfg)
+    with phase("call_emit"):
+        stats = _call_and_emit_single(fm, cl, next_thr, cfg)
     seconds["call_emit"] = time.perf_counter() - t4
     log(f"[timing] call+emit {seconds['call_emit']:.2f}s")
     stats.update(st)
@@ -228,6 +234,7 @@ def _pair_passes(quirk0: torch.Tensor, quirk1: torch.Tensor,
     return passes & ~same_single
 
 
+@profiled
 def run_two_datasets(cfg: Config, log=_log, device="cuda",
                      packed: bool | None = None, ckpt_dir=None,
                      ckpt_every: int = 0) -> dict:
@@ -242,9 +249,10 @@ def run_two_datasets(cfg: Config, log=_log, device="cuda",
     t0 = time.perf_counter()
     log("Phase 1/4: loading and indexing eBWTs ... ")
     # input 1 first: a bad input 1 is reported before input 2 (cpp:1750-1758)
-    fm1 = FMIndex.from_file(cfg.input1, cfg.term, dev)
-    fm2 = FMIndex.from_file(cfg.input2, cfg.term, dev)
-    device_mod.synchronize(dev)
+    with phase("index"):
+        fm1 = FMIndex.from_file(cfg.input1, cfg.term, dev)
+        fm2 = FMIndex.from_file(cfg.input2, cfg.term, dev)
+        device_mod.synchronize(dev)
     t1 = time.perf_counter()
     seconds["index"] = t1 - t0
     log(f"done. [{t1 - t0:.2f}s]")
@@ -268,19 +276,22 @@ def run_two_datasets(cfg: Config, log=_log, device="cuda",
 
     log("Phase 4/4: detecting SNPs and indels.")
     log(f"Output events will be stored in {cfg.output}")
-    next_thr, cl = _anchor_and_clusters(res, n, cfg.mcov_out)
-    # the DA stays on the device as a rank structure (the reference scans
-    # its vector<bool> DA, cpp:1431-1432); the packed route's DA is already
-    # words in its layout (pipeline.py:276-277)
-    da_bv = ((res.da, bits.bv_counts(res.da)) if res.packed
-             else bits.bv_build(res.da))
-    del res
-    device_mod.synchronize(dev)
+    with phase("cluster"):
+        next_thr, cl = _anchor_and_clusters(res, n, cfg.mcov_out)
+        # the DA stays on the device as a rank structure (the reference
+        # scans its vector<bool> DA, cpp:1431-1432); the packed route's DA
+        # is already words in its layout (pipeline.py:276-277)
+        da_bv = ((res.da, bits.bv_counts(res.da)) if res.packed
+                 else bits.bv_build(res.da))
+        del res
+        device_mod.synchronize(dev)
     t4 = time.perf_counter()
     seconds["cluster"] = t4 - t2
     log(f"[timing] cluster detect and DA rank build (device) {t4 - t2:.2f}s")
 
-    stats = _call_and_emit_pair_mode2(fm1, fm2, cl, next_thr, da_bv, cfg)
+    with phase("call_emit"):
+        stats = _call_and_emit_pair_mode2(fm1, fm2, cl, next_thr, da_bv,
+                                          cfg)
     seconds["call_emit"] = time.perf_counter() - t4
     log(f"[timing] call+emit {seconds['call_emit']:.2f}s")
     stats.update(st)
@@ -370,6 +381,7 @@ def mask_da0(raw: np.ndarray, da: np.ndarray, term: int) -> np.ndarray:
     return (raw - t) * da + t
 
 
+@profiled
 def run_two_datasets_da(cfg: Config, log=_log, device="cuda",
                         packed: bool | None = None, ckpt_dir=None,
                         ckpt_every: int = 0) -> dict:
@@ -397,8 +409,9 @@ def run_two_datasets_da(cfg: Config, log=_log, device="cuda",
     # thread behind phases 2-3 (pipeline.py:433-452)
     with ThreadPoolExecutor(1) as ex:
         da_fut = ex.submit(da_side)
-        fm = FMIndex.from_packed(packing.pack_bytes(raw, cfg.term), dev)
-        device_mod.synchronize(dev)
+        with phase("index"):
+            fm = FMIndex.from_packed(packing.pack_bytes(raw, cfg.term), dev)
+            device_mod.synchronize(dev)
         t1 = time.perf_counter()
         seconds["index"] = t1 - t0
         log(f"done. [{t1 - t0:.2f}s]")
@@ -424,14 +437,17 @@ def run_two_datasets_da(cfg: Config, log=_log, device="cuda",
     seconds["da_wait"] = t3 - t2
     log(f"[timing] DA-side index wait {t3 - t2:.2f}s")
 
-    next_thr, cl = _anchor_and_clusters(res, fm.n, cfg.mcov_out)
-    del res
-    device_mod.synchronize(dev)
+    with phase("cluster"):
+        next_thr, cl = _anchor_and_clusters(res, fm.n, cfg.mcov_out)
+        del res
+        device_mod.synchronize(dev)
     t4 = time.perf_counter()
     seconds["cluster"] = t4 - t3
     log(f"[timing] cluster detect (device) {t4 - t3:.2f}s")
 
-    stats = _call_and_emit_pair_mode3(fm, fm_da1, cl, next_thr, da_bv, cfg)
+    with phase("call_emit"):
+        stats = _call_and_emit_pair_mode3(fm, fm_da1, cl, next_thr, da_bv,
+                                          cfg)
     seconds["call_emit"] = time.perf_counter() - t4
     log(f"[timing] call+emit {seconds['call_emit']:.2f}s")
     stats.update(st)

@@ -43,6 +43,12 @@ the last good one. A phase resumes from a saved state whose ``n``, ``K``,
 deletes the file when it completes. The writes do not depend on visit
 order, so a resumed phase gives the uninterrupted flags and counts; only
 ``max_pending`` may differ.
+
+``EBWT_PROGRESS`` (set and not ``0``; read when a phase starts) prints
+``[progress] processed {p} items, {w} pending`` after each chunk, the JAX
+package's line (traverse.py:973-977 there): p is the phase's count of
+leaves or nodes so far, w the FIFO's pending rows. Reading p syncs the
+device once a chunk, so it is off by default.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ import torch
 
 from ..device import synchronize
 from ..ops import bits
+from ..utils.profile import phase
 from . import fm_index as fm_ops
 from .fm_index import FMIndex
 
@@ -342,13 +349,15 @@ class Fifo:
         return self.parts[0]
 
 
-def _run_phase(init: torch.Tensor, step,
+def _run_phase(init: torch.Tensor, step, stats: torch.Tensor,
                ckpt: _Checkpoint | None = None) -> int:
     """Drain a FIFO of device row tensors in chunks of up to CHUNK rows;
-    ``step(chunk)`` returns the children to queue. Returns the largest
-    pending count seen (it depends on visit order; diagnostic only). With
-    ``ckpt``, the phase starts from its saved state where one matches, saves
-    every ``ckpt.every`` chunks and deletes the file at the end."""
+    ``step(chunk)`` returns the children to queue and counts the rows it
+    took in ``stats[0]``. Returns the largest pending count seen (it
+    depends on visit order; diagnostic only). With ``ckpt``, the phase
+    starts from its saved state where one matches, saves every
+    ``ckpt.every`` chunks and deletes the file at the end."""
+    progress = os.environ.get("EBWT_PROGRESS", "0") != "0"
     fifo = Fifo(init)
     max_pending = init.shape[0]
     saved = ckpt.load() if ckpt is not None else None
@@ -360,6 +369,9 @@ def _run_phase(init: torch.Tensor, step,
         fifo.push(step(fifo.pop(CHUNK)))
         max_pending = max(max_pending, fifo.n)
         steps += 1
+        if progress:
+            print(f"[progress] processed {int(stats[0])} items, {fifo.n} "
+                  "pending", flush=True)
         if ckpt is not None and ckpt.every and steps % ckpt.every == 0 \
                 and fifo.n:
             ckpt.save(fifo.merged(), max_pending)
@@ -455,30 +467,33 @@ def navigate_one_bwt(fm: FMIndex, K: int, k_right: int,
     if packed is None:
         packed = n >= LEAN_N
     t0 = time.perf_counter()
-    difs = [torch.zeros(n + 1, dtype=torch.int32, device=dev)
-            for _ in range(2)]  # K, R
-    st_l = torch.zeros(2, dtype=torch.int64, device=dev)  # leaves, lcp
-    init = fm.first_leaf()[None, :]
-    maxp_l = _run_phase(
-        init, lambda c: _leaf_body(fm, c, difs, st_l, K, k_right),
-        _checkpoint(ckpt_dir, ckpt_every, "leaf_body", [*difs, st_l], n, K,
-                    k_right, init))
-    fills = (_fills_packed(difs, n, slice_len) if packed
-             else _fills_dense(difs, n))
-    synchronize(dev)
+    with phase("leaf_phase"):
+        difs = [torch.zeros(n + 1, dtype=torch.int32, device=dev)
+                for _ in range(2)]  # K, R
+        st_l = torch.zeros(2, dtype=torch.int64, device=dev)  # leaves, lcp
+        init = fm.first_leaf()[None, :]
+        maxp_l = _run_phase(
+            init, lambda c: _leaf_body(fm, c, difs, st_l, K, k_right), st_l,
+            _checkpoint(ckpt_dir, ckpt_every, "leaf_body", [*difs, st_l], n,
+                        K, k_right, init))
+        fills = (_fills_packed(difs, n, slice_len) if packed
+                 else _fills_dense(difs, n))
+        synchronize(dev)
     t1 = time.perf_counter()
 
-    flags = torch.zeros(n, dtype=torch.uint8, device=dev)
-    st_n = torch.zeros(3, dtype=torch.int64, device=dev)  # nodes, lcp, n_min
-    init = fm.root()[None, :]
-    maxp_n = _run_phase(
-        init, lambda c: _node_body(fm, c, flags, st_n, K, k_right),
-        _checkpoint(ckpt_dir, ckpt_every, "node_body", [flags, st_n], n, K,
-                    k_right, init))
-    thr_K, thr_R, minima = (_combine_packed(flags, fills, n, slice_len)
-                            if packed else _combine_dense(flags, fills))
-    del flags, fills
-    synchronize(dev)
+    with phase("node_phase"):
+        flags = torch.zeros(n, dtype=torch.uint8, device=dev)
+        # nodes, lcp, n_min
+        st_n = torch.zeros(3, dtype=torch.int64, device=dev)
+        init = fm.root()[None, :]
+        maxp_n = _run_phase(
+            init, lambda c: _node_body(fm, c, flags, st_n, K, k_right), st_n,
+            _checkpoint(ckpt_dir, ckpt_every, "node_body", [flags, st_n], n,
+                        K, k_right, init))
+        thr_K, thr_R, minima = (_combine_packed(flags, fills, n, slice_len)
+                                if packed else _combine_dense(flags, fills))
+        del flags, fills
+        synchronize(dev)
     t2 = time.perf_counter()
 
     l, n_ = st_l.tolist(), st_n.tolist()
@@ -507,31 +522,40 @@ def navigate_two_bwts(fm1: FMIndex, fm2: FMIndex, K: int, k_right: int,
         packed = n >= LEAN_N
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
     t0 = time.perf_counter()
-    difs = [torch.zeros(n + 1, dtype=torch.int32, device=dev)
-            for _ in range(3)]  # K, R, DA
-    st_l = torch.zeros(3, dtype=torch.int64, device=dev)  # leaves, lcp, da
-    init = torch.cat([fm1.first_leaf()[:2], fm2.first_leaf()[:2], zero])[None]
-    maxp_l = _run_phase(
-        init, lambda c: _leaf_pair_body(fm1, fm2, c, difs, st_l, K, k_right),
-        _checkpoint(ckpt_dir, ckpt_every, "leaf_pair_body", [*difs, st_l], n,
-                    K, k_right, init))
-    fills = (_fills_packed(difs, n, slice_len) if packed
-             else _fills_dense(difs, n))
-    synchronize(dev)
+    with phase("leaf_phase"):
+        difs = [torch.zeros(n + 1, dtype=torch.int32, device=dev)
+                for _ in range(3)]  # K, R, DA
+        # leaves, lcp, da
+        st_l = torch.zeros(3, dtype=torch.int64, device=dev)
+        init = torch.cat([fm1.first_leaf()[:2], fm2.first_leaf()[:2],
+                          zero])[None]
+        maxp_l = _run_phase(
+            init,
+            lambda c: _leaf_pair_body(fm1, fm2, c, difs, st_l, K, k_right),
+            st_l,
+            _checkpoint(ckpt_dir, ckpt_every, "leaf_pair_body",
+                        [*difs, st_l], n, K, k_right, init))
+        fills = (_fills_packed(difs, n, slice_len) if packed
+                 else _fills_dense(difs, n))
+        synchronize(dev)
     t1 = time.perf_counter()
 
-    flags = torch.zeros(n, dtype=torch.uint8, device=dev)
-    # nodes, lcp, n_min, da
-    st_n = torch.zeros(4, dtype=torch.int64, device=dev)
-    init = torch.cat([fm1.root()[:6], fm2.root()[:6], zero])[None]
-    maxp_n = _run_phase(
-        init, lambda c: _node_pair_body(fm1, fm2, c, flags, st_n, K, k_right),
-        _checkpoint(ckpt_dir, ckpt_every, "node_pair_body", [flags, st_n], n,
-                    K, k_right, init))
-    thr_K, thr_R, minima, da = (_combine_packed(flags, fills, n, slice_len)
-                                if packed else _combine_dense(flags, fills))
-    del flags, fills
-    synchronize(dev)
+    with phase("node_phase"):
+        flags = torch.zeros(n, dtype=torch.uint8, device=dev)
+        # nodes, lcp, n_min, da
+        st_n = torch.zeros(4, dtype=torch.int64, device=dev)
+        init = torch.cat([fm1.root()[:6], fm2.root()[:6], zero])[None]
+        maxp_n = _run_phase(
+            init,
+            lambda c: _node_pair_body(fm1, fm2, c, flags, st_n, K, k_right),
+            st_n,
+            _checkpoint(ckpt_dir, ckpt_every, "node_pair_body",
+                        [flags, st_n], n, K, k_right, init))
+        thr_K, thr_R, minima, da = (
+            _combine_packed(flags, fills, n, slice_len) if packed
+            else _combine_dense(flags, fills))
+        del flags, fills
+        synchronize(dev)
     t2 = time.perf_counter()
 
     l, n_ = st_l.tolist(), st_n.tolist()

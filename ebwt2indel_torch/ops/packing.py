@@ -15,10 +15,16 @@ Block counters are 32-bit, so one run is capped below 2^32 characters.
 
 Mode 3 also reads a document array (``read_da_file``) and packs it into the
 rank-1 bitvector layout of ``ops/bits.py`` (``pack_bitvector``).
+
+``pack_file_cached`` keeps a packed index beside its input, in the
+``<input>.idx.npz`` sidecar of the JAX package (packing.py:189-224 there):
+the same file name, keys and dtypes, so each package reads the other's.
 """
 
 from __future__ import annotations
 
+import os
+import zipfile
 from dataclasses import dataclass
 
 import numpy as np
@@ -168,6 +174,61 @@ def pack_file(path: str, term: int = dna.DEFAULT_TERM) -> PackedBwt:
         return native.pack_file(path, term)
     except native.NativeUnavailable:
         return pack_codes(read_ebwt_codes(path, term), term)
+
+
+def save_packed(pb: PackedBwt, path: str) -> None:
+    """Write a packed index to ``path`` (``.npz`` appended when missing,
+    as ``np.savez`` does) with the JAX package's keys and dtypes, through
+    a temporary file and ``os.replace``, so a kill mid-write leaves no half
+    file under the name."""
+    path = path if path.endswith(".npz") else path + ".npz"
+    tmp = path + ".tmp"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, blocks=pb.blocks, block_counts=pb.block_counts,
+                     F=pb.F, counts=pb.counts, n=np.int64(pb.n),
+                     term=np.int64(pb.term))
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load_packed(path: str) -> PackedBwt:
+    """Read an index written by ``save_packed`` of either package."""
+    with np.load(path if path.endswith(".npz") else path + ".npz") as z:
+        return PackedBwt(blocks=z["blocks"], block_counts=z["block_counts"],
+                         F=z["F"], counts=z["counts"], n=int(z["n"]),
+                         term=int(z["term"]))
+
+
+# what a sidecar that does not load raises (a truncated or foreign file)
+_UNREADABLE = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
+
+
+def pack_file_cached(path: str, term: int = dna.DEFAULT_TERM) -> PackedBwt:
+    """``pack_file`` through the ``<path>.idx.npz`` sidecar: it is read when
+    it is at least as new as the input and holds an index of the input's
+    length and terminator, else the input is packed and the sidecar
+    (re)written. A sidecar that does not load is repacked, and a failed
+    write leaves the run as it would be without the cache (as in the JAX
+    package)."""
+    idx = path + ".idx.npz"
+    if os.path.isfile(idx) and \
+            os.path.getmtime(idx) >= os.path.getmtime(path):
+        try:
+            pb = load_packed(idx)
+        except _UNREADABLE:
+            pb = None
+        if pb is not None and pb.n == os.path.getsize(path) and \
+                pb.term == term:
+            return pb
+    pb = pack_file(path, term)
+    try:
+        save_packed(pb, idx)
+    except OSError:
+        pass
+    return pb
 
 
 @dataclass

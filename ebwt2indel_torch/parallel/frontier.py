@@ -34,12 +34,36 @@ the pair helpers, and the exact int32-per-field leaf deltas (separate K, R
 and, in mode 2, DA vectors), so no depth bound and no fallback exist. After
 the leaf phase each shard's deltas become fills by a local prefix sum plus
 the exclusive prefix of the shards' totals.
+
+Checkpoint and resume (``ckpt_dir``, ``ckpt_every`` of the navigate
+functions; the JAX package's ``_ckpt_file``, ``_drive_phase`` and
+``_maybe_resume``, frontier.py:206-251 there): every ``ckpt_every`` mesh
+steps (the JAX package counts dispatches) each process saves, for every
+local shard, its FIFO (``traverse.Fifo.merged``, so the order and the
+chunking stay), its accumulators (K/R or K/R/DA delta vectors, or flags)
+and its stats tensor, with the mesh steps so far and this process's routed
+bytes of the phase so far, to ``<ckpt_dir>/frontier_<tag>.p<procid>.pt``
+(tags ``m1leaf``, ``m1node``, ``pleaf``, ``pnode``, the JAX package's;
+modes 1 and 3 share the first two). The JAX package writes one file from
+one process; here every process writes its own, so a kill can land between
+two processes' saves. Hence each process keeps its last two saves (the older
+one as ``frontier_<tag>.p<procid>.prev.pt``), and before its first
+collective a phase gathers every process's saved steps whose meta (the
+positions, K, k_right, the row width, S, the processes, this process's id
+and shards, the shard length) match its own, over ``mesh.allgather_host``.
+Every process resumes from the newest step that all of them hold, or all
+start fresh (process 0 says so on stderr when a save was found): no shard
+ever resumes alone, and no resume mixes steps. A phase deletes its files
+when it completes.
 """
 
 from __future__ import annotations
 
+import os
+import sys
 import time
 
+import numpy as np
 import torch
 
 from ..models import fm_index as fm_ops
@@ -49,26 +73,126 @@ from . import shard as shard_ops
 from .shard import ShardedFM
 
 
-def _drive(sfm: ShardedFM, width: int, init: torch.Tensor, step) -> int:
+class _MeshCheckpoint:
+    """One process's resume state of a mesh phase (see the module's
+    docstring). ``state`` maps each local shard to its accumulators and
+    stats tensor, restored in place; ``meta`` must match for a save to be
+    taken. A save every ``every`` mesh steps (0: never)."""
+
+    def __init__(self, mesh, ckpt_dir: str, every: int, tag: str,
+                 state: dict, meta: dict):
+        self.mesh, self.every, self.tag = mesh, every, tag
+        self.state = state
+        self.meta = dict(meta, S=mesh.size, nprocs=mesh.nprocs,
+                         proc=mesh.proc, local=list(mesh.local))
+        stem = os.path.join(ckpt_dir, f"frontier_{tag}.p{mesh.proc}")
+        self.path, self.prev = stem + ".pt", stem + ".prev.pt"
+        self.routed0 = 0
+
+    def _saved(self) -> tuple[dict, int]:
+        """This process's saves, by step, whose meta matches (the tensors
+        stay on disk, memory-mapped), and the number of save files found."""
+        found, files = {}, 0
+        for path in (self.path, self.prev):
+            if os.path.isfile(path):
+                files += 1
+                z = torch.load(path, map_location="cpu", weights_only=True,
+                               mmap=True)
+                if z["meta"] == self.meta:
+                    found[z["step"]] = z
+        return found, files
+
+    def resume(self, fifos: dict) -> int:
+        """Restore the newest step that every process holds into ``fifos``
+        and ``state``; returns it, or 0 to start fresh. Every process must
+        call it at the same point: it gathers every process's steps."""
+        mesh = self.mesh
+        saved, files = self._saved()
+        steps = sorted(saved, reverse=True)[:2] + [-1, -1]
+        row = np.array([[steps[0], steps[1], files]] * len(mesh.local),
+                       np.int64)
+        table = mesh.allgather_host(row)  # (S, 3)
+        common = set(table[0, :2].tolist())
+        for r in table[1:]:
+            common &= set(r[:2].tolist())
+        common.discard(-1)
+        self.routed0 = mesh.routed_bytes
+        if not common:
+            if mesh.proc == 0 and table[:, 2].any():
+                print(f"[ckpt] frontier_{self.tag}: no saved step that every "
+                      f"process holds and that matches this run (steps per "
+                      f"shard {table[:, :2].tolist()}); the phase starts "
+                      "fresh", file=sys.stderr, flush=True)
+            return 0
+        step = max(common)
+        z = saved[step]
+        for s in mesh.local:
+            shard = z["shards"][s]
+            for t, x in zip(self.state[s], shard["state"]):
+                t.copy_(x)
+            fifos[s].push(shard["queue"].to(mesh.devices[s]))
+        mesh.routed_bytes += z["routed"]
+        return step
+
+    def save(self, fifos: dict, step: int) -> None:
+        """Write this process's state at ``step`` through a temporary file
+        and ``os.replace``; the save it replaces becomes the previous one."""
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        tmp = self.path + ".tmp"
+        torch.save({"meta": self.meta, "step": step,
+                    "routed": self.mesh.routed_bytes - self.routed0,
+                    "shards": {s: {"queue": f.merged().cpu()
+                                   if f.n else torch.zeros(0),
+                                   "state": [t.cpu() for t in self.state[s]]}
+                               for s, f in fifos.items()}}, tmp)
+        if os.path.isfile(self.path):
+            os.replace(self.path, self.prev)
+        os.replace(tmp, self.path)
+
+    def remove(self) -> None:
+        for path in (self.path, self.prev, self.path + ".tmp"):
+            if os.path.isfile(path):
+                os.remove(path)
+
+
+def _checkpoint(mesh, ckpt_dir, every: int, tag: str, state: dict,
+                **meta) -> _MeshCheckpoint | None:
+    if not ckpt_dir:
+        return None
+    return _MeshCheckpoint(mesh, ckpt_dir, every, tag, state, meta)
+
+
+def _drive(sfm: ShardedFM, width: int, init: torch.Tensor, step,
+           ckpt: _MeshCheckpoint | None = None) -> int:
     """Run a phase: per-shard FIFOs, ``init`` on the shard that owns it,
     ``step(chunks)`` over a chunk of up to ``traverse.CHUNK`` rows of every
     local shard (possibly empty) returning each local shard's new rows.
-    Returns the number of mesh steps."""
+    With ``ckpt`` the phase resumes where every process holds a save, saves
+    every ``ckpt.every`` mesh steps and deletes its files at the end.
+    Returns the number of mesh steps (those before the resume included)."""
     mesh = sfm.mesh
     fifos = {s: traverse.Fifo() for s in mesh.local}
-    owner = int(init[0, 0]) // sfm.local_n
-    if owner in fifos:
-        fifos[owner].push(init.to(mesh.devices[owner]))
+    steps = ckpt.resume(fifos) if ckpt is not None else 0
+    resumed = steps
+    if not resumed:
+        owner = int(init[0, 0]) // sfm.local_n
+        if owner in fifos:
+            fifos[owner].push(init.to(mesh.devices[owner]))
     empty = {s: torch.zeros((0, width), dtype=torch.int64,
                             device=mesh.devices[s]) for s in mesh.local}
-    steps = 0
     while mesh.psum_int(sum(f.n for f in fifos.values())):
+        # the step count is the same on every process, so all save at once
+        if ckpt is not None and ckpt.every and steps > resumed and \
+                steps % ckpt.every == 0:
+            ckpt.save(fifos, steps)
         chunks = {s: f.pop(traverse.CHUNK) if f.n else empty[s]
                   for s, f in fifos.items()}
         for s, new in step(chunks).items():
             for rows in new:
                 fifos[s].push(rows)
         steps += 1
+    if ckpt is not None:
+        ckpt.remove()
     return steps
 
 
@@ -253,15 +377,20 @@ def _fills(sfm: ShardedFM, difs: dict) -> dict:
     return fills
 
 
-def navigate_one_bwt_sharded(sfm: ShardedFM, K: int, k_right: int):
+def navigate_one_bwt_sharded(sfm: ShardedFM, K: int, k_right: int,
+                             ckpt_dir=None, ckpt_every: int = 0):
     """Frontier-sharded mode-1 navigation: the leaf phase, then the node
     phase. Returns (thr_K, thr_R, minima, stats): each flag a dict of the
     local shards' (local_n,) uint8 vectors over the shard's positions (0
     past n), and ``stats`` the counts of ``traverse.navigate_one_bwt``
     (``leaves``, ``nodes``, ``lcp_values``, ``n_min``) plus the mesh steps
-    and the seconds of each phase."""
+    and the seconds of each phase. With ``ckpt_dir`` each phase resumes
+    from and saves to checkpoints there (every ``ckpt_every`` mesh steps;
+    see the module's docstring)."""
     mesh, L = sfm.mesh, sfm.local_n
     dev = mesh.devices
+    meta = {"n": sfm.n, "K": K, "k_right": k_right, "local_n": L,
+            "rows": sfm.rows}
     t0 = time.perf_counter()
     difs = {s: [torch.zeros(L, dtype=torch.int32, device=dev[s])
                 for _ in range(2)] for s in mesh.local}
@@ -270,7 +399,10 @@ def navigate_one_bwt_sharded(sfm: ShardedFM, K: int, k_right: int):
     F = sfm.F.tolist()
     leaf_steps = _drive(
         sfm, 3, torch.tensor([[0, F[0], 0]]),
-        lambda c: _leaf_step(sfm, c, difs, st_l, K, k_right))
+        lambda c: _leaf_step(sfm, c, difs, st_l, K, k_right),
+        _checkpoint(mesh, ckpt_dir, ckpt_every, "m1leaf",
+                    {s: [*difs[s], st_l[s]] for s in mesh.local},
+                    width=3, **meta))
     fills = _fills(sfm, difs)
     mesh.synchronize()
     t1 = time.perf_counter()
@@ -281,7 +413,10 @@ def navigate_one_bwt_sharded(sfm: ShardedFM, K: int, k_right: int):
             for s in mesh.local}
     node_steps = _drive(
         sfm, 7, torch.tensor([[0, *F, sfm.n, 0]]),
-        lambda c: _node_step(sfm, c, flags, st_n, K, k_right))
+        lambda c: _node_step(sfm, c, flags, st_n, K, k_right),
+        _checkpoint(mesh, ckpt_dir, ckpt_every, "m1node",
+                    {s: [flags[s], st_n[s]] for s in mesh.local},
+                    width=7, **meta))
     thr_K, thr_R, minima = {}, {}, {}
     for s in mesh.local:
         thr_K[s], thr_R[s], minima[s] = traverse._combine_dense(
@@ -423,7 +558,8 @@ def _node_pair_step(sfm1: ShardedFM, sfm2: ShardedFM, Lm: int, chunks: dict,
 
 
 def navigate_two_bwts_sharded(sfm1: ShardedFM, sfm2: ShardedFM, K: int,
-                              k_right: int):
+                              k_right: int, ckpt_dir=None,
+                              ckpt_every: int = 0):
     """Frontier-sharded lockstep navigation of two indexes on one mesh
     (mode 2): the leaf-pair phase, then the node-pair phase, over n = n1 +
     n2 merged positions partitioned in ``merged_local_n(n, S)`` positions a
@@ -433,13 +569,18 @@ def navigate_two_bwts_sharded(sfm1: ShardedFM, sfm2: ShardedFM, K: int,
     counts of ``traverse.navigate_two_bwts`` (``da_values`` among them) plus
     the mesh steps, ``comm_bytes_per_step`` (the bytes of the rows that the
     ``all_to_all``s send to another shard, over the mesh, per step; the
-    wide rows' gathers are not in it) and the seconds of each phase."""
+    wide rows' gathers are not in it) and the seconds of each phase.
+    ``ckpt_dir`` and ``ckpt_every`` act as in ``navigate_one_bwt_sharded``;
+    a resumed phase restores its routed bytes, so ``comm_bytes_per_step``
+    is the uninterrupted run's."""
     mesh = sfm1.mesh
     n1, n2 = sfm1.n, sfm2.n
     n = n1 + n2
     shard_ops._check_mesh_cap(n)
     Lm = merged_local_n(n, mesh.size)
     dev = mesh.devices
+    meta = {"n1": n1, "n2": n2, "Lm": Lm, "K": K, "k_right": k_right,
+            "rows": [sfm1.rows, sfm2.rows]}
     routed = mesh.routed_bytes
     t0 = time.perf_counter()
     difs = {s: [torch.zeros(Lm, dtype=torch.int32, device=dev[s])
@@ -449,7 +590,10 @@ def navigate_two_bwts_sharded(sfm1: ShardedFM, sfm2: ShardedFM, K: int,
     F1, F2 = sfm1.F.tolist(), sfm2.F.tolist()
     leaf_steps = _drive(
         sfm1, 5, torch.tensor([[0, F1[0], 0, F2[0], 0]]),
-        lambda c: _leaf_pair_step(sfm1, sfm2, Lm, c, difs, st_l, K, k_right))
+        lambda c: _leaf_pair_step(sfm1, sfm2, Lm, c, difs, st_l, K, k_right),
+        _checkpoint(mesh, ckpt_dir, ckpt_every, "pleaf",
+                    {s: [*difs[s], st_l[s]] for s in mesh.local},
+                    width=5, **meta))
     fills = _fills(sfm1, difs)
     mesh.synchronize()
     t1 = time.perf_counter()
@@ -461,7 +605,10 @@ def navigate_two_bwts_sharded(sfm1: ShardedFM, sfm2: ShardedFM, K: int,
     node_steps = _drive(
         sfm1, 13, torch.tensor([[0, *F1, n1, 0, *F2, n2, 0]]),
         lambda c: _node_pair_step(sfm1, sfm2, Lm, c, flags, st_n, K,
-                                  k_right))
+                                  k_right),
+        _checkpoint(mesh, ckpt_dir, ckpt_every, "pnode",
+                    {s: [flags[s], st_n[s]] for s in mesh.local},
+                    width=13, **meta))
     thr_K, thr_R, minima, da = {}, {}, {}, {}
     for s in mesh.local:
         thr_K[s], thr_R[s], minima[s], da[s] = traverse._combine_dense(

@@ -34,10 +34,13 @@ from . import calling, frontier, shard
 from .mesh import Mesh
 
 
-def run_one_dataset_sharded(cfg: Config, mesh: Mesh, log=mpipe._log) -> dict:
-    """Mode 1 over ``mesh``. Returns the stats of
-    ``models.pipeline.run_one_dataset`` (its ``seconds`` too, each phase
-    ended by a device synchronise) plus the traversal's mesh steps."""
+def run_one_dataset_sharded(cfg: Config, mesh: Mesh, log=mpipe._log,
+                            ckpt_dir=None, ckpt_every: int = 0) -> dict:
+    """Mode 1 over ``mesh``. ``ckpt_dir`` and ``ckpt_every`` give the
+    traversal's checkpoint and resume (``frontier``; each process writes
+    its own files). Returns the stats of ``models.pipeline.run_one_dataset``
+    (its ``seconds`` too, each phase ended by a device synchronise) plus
+    the traversal's mesh steps."""
     cfg = cfg.resolved()
     seconds = {}
     t0 = time.perf_counter()
@@ -54,7 +57,7 @@ def run_one_dataset_sharded(cfg: Config, mesh: Mesh, log=mpipe._log) -> dict:
     log(f"\nPhase 2-3/4: suffix-tree wavefront navigation "
         f"({mesh.size}-device mesh).")
     thr_K, thr_R, minima, st = frontier.navigate_one_bwt_sharded(
-        sfm, cfg.K, cfg.k_right)
+        sfm, cfg.K, cfg.k_right, ckpt_dir, ckpt_every)
     t2 = time.perf_counter()
     seconds["leaf_phase"] = st.pop("leaf_seconds")
     seconds["node_phase"] = st.pop("node_seconds")
@@ -132,10 +135,12 @@ def load_da_side(mesh: Mesh, raw: np.ndarray, da: np.ndarray, term: int):
 
 
 def run_two_datasets_da_sharded(cfg: Config, mesh: Mesh,
-                                log=mpipe._log) -> dict:
+                                log=mpipe._log, ckpt_dir=None,
+                                ckpt_every: int = 0) -> dict:
     """Mode 3 over ``mesh``: the merged index (``-1``), its DA = 1 side
     built by the sharded loader from the eBWT and the document array
-    (``-d``) range by range, and the document array's rank structure.
+    (``-d``) range by range, and the document array's rank structure. The
+    traversal is mode 1's, and so are ``ckpt_dir`` and ``ckpt_every``.
     Returns the stats of ``models.pipeline.run_two_datasets_da`` (its
     ``seconds`` with ``da_wait`` too) plus the traversal's mesh steps."""
     cfg = cfg.resolved()
@@ -164,7 +169,7 @@ def run_two_datasets_da_sharded(cfg: Config, mesh: Mesh,
         log(f"\nPhase 2-3/4: suffix-tree wavefront navigation "
             f"({mesh.size}-device mesh).")
         thr_K, thr_R, minima, st = frontier.navigate_one_bwt_sharded(
-            sfm, cfg.K, cfg.k_right)
+            sfm, cfg.K, cfg.k_right, ckpt_dir, ckpt_every)
         seconds["leaf_phase"] = st.pop("leaf_seconds")
         seconds["node_phase"] = st.pop("node_seconds")
         log(f"Computed {st['lcp_values']}/{sfm.n} LCP values.")
@@ -218,13 +223,14 @@ def run_two_datasets_da_sharded(cfg: Config, mesh: Mesh,
     return stats
 
 
-def run_two_datasets_sharded(cfg: Config, mesh: Mesh,
-                             log=mpipe._log) -> dict:
+def run_two_datasets_sharded(cfg: Config, mesh: Mesh, log=mpipe._log,
+                             ckpt_dir=None, ckpt_every: int = 0) -> dict:
     """Mode 2 over ``mesh``: two indexes (``-1``, ``-2``), each in its own
     block partition, traversed in lockstep (``frontier.
-    navigate_two_bwts_sharded``); the merged flags and document array in a
-    third (``frontier.merged_local_n``). n1 + n2 is checked against
-    ``packing.CAP`` before anything is read. Returns the stats of
+    navigate_two_bwts_sharded``, with ``ckpt_dir`` and ``ckpt_every``); the
+    merged flags and document array in a third (``frontier.
+    merged_local_n``). n1 + n2 is checked against ``packing.CAP`` before
+    anything is read. Returns the stats of
     ``models.pipeline.run_two_datasets`` plus the mesh steps and
     ``comm_bytes_per_step``."""
     cfg = cfg.resolved()
@@ -253,7 +259,7 @@ def run_two_datasets_sharded(cfg: Config, mesh: Mesh,
     log(f"\nPhase 2-3/4: merged suffix-tree wavefront navigation "
         f"({mesh.size}-device mesh).")
     thr_K, thr_R, minima, da, st = frontier.navigate_two_bwts_sharded(
-        sfm1, sfm2, cfg.K, cfg.k_right)
+        sfm1, sfm2, cfg.K, cfg.k_right, ckpt_dir, ckpt_every)
     t2 = time.perf_counter()
     seconds["leaf_phase"] = st.pop("leaf_seconds")
     seconds["node_phase"] = st.pop("node_seconds")

@@ -1,8 +1,10 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA rank kernel against
 its plain PyTorch version, modes 1, 2 and 3 on the card against the same
 mode on the CPU, the bit-packed route against the dense route, a traversal
-resumed from its checkpoint against an uninterrupted run, and mode 1 on a
-4-shard mesh held by the card against the CPU's single-device run.
+resumed from its checkpoint against an uninterrupted run, modes 1, 3 and 2
+on a 4-shard mesh held by the card against the CPU's single-device run, a
+mesh run resumed from its checkpoints against an uninterrupted one, and an
+index read from its cache against a fresh one.
 A CUDA kernel has no CPU mode, so without a card these skip. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -261,3 +263,88 @@ def test_mesh_mode3_cuda_matches_cpu(tmp_path, rng):
 
 def test_mesh_mode2_cuda_matches_cpu(tmp_path, rng):
     _mesh_pair_cuda_vs_cpu(tmp_path, rng, 2)
+
+
+def test_mesh_mode2_resume_matches_uninterrupted_on_card(tmp_path, rng,
+                                                         monkeypatch):
+    """Mode 2 on a 4-shard mesh held on the card, killed in its node-pair
+    phase after the phase's second save and run again, writes the
+    uninterrupted .snp with equal stats (the mesh steps and routed bytes
+    among them), ranks through the kernel, and leaves no checkpoint."""
+    _needs_cuda()
+    from ebwt2indel_torch.parallel import frontier, mesh
+    from ebwt2indel_torch.parallel import pipeline as mesh_pipeline
+
+    reads1, reads2 = _pair_reads(rng)
+    (tmp_path / "a.ebwt").write_text(ebwt.ebwt_of_reads(reads1))
+    (tmp_path / "b.ebwt").write_text(ebwt.ebwt_of_reads(reads2))
+    monkeypatch.setattr(traverse, "CHUNK", 256)
+
+    def run(out, **ckpt):
+        return mesh_pipeline.run_two_datasets_sharded(
+            Config(input1=str(tmp_path / "a.ebwt"),
+                   input2=str(tmp_path / "b.ebwt"),
+                   output=str(tmp_path / out)),
+            mesh.Mesh(4, device="cuda"), log=lambda *a, **k: None, **ckpt)
+
+    want = run("want.snp")
+    saves = []
+    real_save = frontier._MeshCheckpoint.save
+    real_step = frontier._node_pair_step
+
+    def save(ckpt, *a):
+        real_save(ckpt, *a)
+        saves.append(ckpt.tag)
+
+    def step(*a, **k):
+        if saves.count("pnode") >= 2:
+            raise _Preempted
+        return real_step(*a, **k)
+
+    monkeypatch.setattr(frontier._MeshCheckpoint, "save", save)
+    monkeypatch.setattr(frontier, "_node_pair_step", step)
+    ckpt = {"ckpt_dir": str(tmp_path / "ckpt"), "ckpt_every": 2}
+    with pytest.raises(_Preempted):
+        run("got.snp", **ckpt)
+    assert sorted(os.listdir(tmp_path / "ckpt")) == [
+        "frontier_pnode.p0.prev.pt", "frontier_pnode.p0.pt"]
+    monkeypatch.setattr(frontier, "_node_pair_step", real_step)
+    before = rank_cuda.LAUNCHES["rank_decode"]
+    got = run("got.snp", **ckpt)
+    assert rank_cuda.LAUNCHES["rank_decode"] > before
+    assert (tmp_path / "got.snp").read_bytes() == \
+        (tmp_path / "want.snp").read_bytes()
+    for k in ("leaves", "nodes", "lcp_values", "n_min", "n_clusters",
+              "events", "cluster_nr", "da_values", "leaf_steps",
+              "node_steps", "comm_bytes_per_step"):
+        assert got[k] == want[k], k
+    assert os.listdir(tmp_path / "ckpt") == []
+
+
+def test_index_cache_on_card(tmp_path, rng, monkeypatch):
+    """With EBWT_INDEX_CACHE=1, mode 1 on the card writes the input's
+    sidecar cold and reads it warm (packing nothing), each .snp equal to
+    the uncached run's, the cached index ranked by the kernel."""
+    _needs_cuda()
+    reads1, reads2 = _pair_reads(rng)
+    path = tmp_path / "r.ebwt"
+    path.write_text(ebwt.ebwt_of_reads(reads1 + reads2))
+
+    def run(out):
+        pipeline.run_one_dataset(Config(input1=str(path),
+                                        output=str(tmp_path / out)),
+                                 log=lambda *a, **k: None, device="cuda")
+        return (tmp_path / out).read_bytes()
+
+    want = run("plain.snp")
+    monkeypatch.setenv("EBWT_INDEX_CACHE", "1")
+    assert run("cold.snp") == want and want
+    assert os.path.isfile(str(path) + ".idx.npz")
+
+    def no_pack(*a, **k):
+        raise AssertionError("packed although its sidecar was there")
+
+    monkeypatch.setattr(packing, "pack_file", no_pack)
+    before = rank_cuda.LAUNCHES["rank_decode"]
+    assert run("warm.snp") == want
+    assert rank_cuda.LAUNCHES["rank_decode"] > before

@@ -3,8 +3,8 @@ run_one_dataset_sharded at S = 1, 3 and 8 equals the JAX package's
 run_one_dataset_sharded on its 8-device virtual CPU mesh and the port's
 single-device .snp; the CLI switch (EBWT_MESH) in a subprocess; two gloo
 processes of two shards each joined through EBWT_COORD, in modes 1, 3 and
-2; the pair modes through the CLI switch; and the refusals (a checkpoint
-directory on a mesh, a forbidden character, no CUDA)."""
+2; the pair modes through the CLI switch, with a checkpoint directory too;
+and the refusals (a forbidden character, no CUDA)."""
 
 import os
 import re
@@ -159,11 +159,12 @@ def test_two_gloo_processes(data, pair, mode):
 def test_mesh_refuses_pair_modes_and_bad_input(pair, tmp_path, monkeypatch,
                                                capsys):
     """Under EBWT_MESH > 1, -2 and -d run on the mesh and write the single
-    device's .snp; with EBWT_CKPT_DIR set every mode exits 1 with an error
-    that names the missing piece and the way out (no output, no checkpoint:
-    the mesh has no resume yet); a forbidden character gives the
-    reference's message and exit 1; and the mesh, like every entry point,
-    needs CUDA unless the CPU is asked for."""
+    device's .snp; with EBWT_CKPT_DIR set every mode still exits 0 with the
+    single device's .snp and leaves the checkpoint directory empty (the
+    mesh saves and resumes; tests/test_torch_mesh_resume.py kills and
+    resumes it); a forbidden character gives the reference's message and
+    exit 1; and the mesh, like every entry point, needs CUDA unless the CPU
+    is asked for."""
     out = tmp_path / "o.snp"
     monkeypatch.setenv("EBWT_MESH", "2")
     for mode in (3, 2):
@@ -172,15 +173,22 @@ def test_mesh_refuses_pair_modes_and_bad_input(pair, tmp_path, monkeypatch,
         assert "(2-device mesh)" in capsys.readouterr().out
         assert out.read_bytes() == pair["one"][mode]
         out.unlink()
+    one1 = tmp_path / "one1.snp"
+    pipeline.run_one_dataset(Config(input1=pair["args"][3][1],
+                                    output=str(one1)), device="cpu", **_QUIET)
     ckpt = tmp_path / "ckpt"
     monkeypatch.setenv("EBWT_CKPT_DIR", str(ckpt))
-    for args in (pair["args"][3][:2], pair["args"][3], pair["args"][2]):
-        assert cli.main(args + ["-o", str(out)], device="cpu") == 1
-        err = capsys.readouterr().err
-        assert "checkpoint/resume does not run on a mesh yet" in err
-        assert "Unset EBWT_MESH or EBWT_CKPT_DIR" in err
-        assert not out.exists() and not ckpt.exists()
+    monkeypatch.setenv("EBWT_CKPT_EVERY", "2")
+    for args, want in ((pair["args"][3][:2], one1.read_bytes()),
+                       (pair["args"][3], pair["one"][3]),
+                       (pair["args"][2], pair["one"][2])):
+        assert cli.main(args + ["-o", str(out)], device="cpu") == 0
+        assert "(2-device mesh)" in capsys.readouterr().out
+        assert out.read_bytes() == want and want
+        assert os.listdir(ckpt) == []
+        out.unlink()
     monkeypatch.delenv("EBWT_CKPT_DIR")
+    monkeypatch.delenv("EBWT_CKPT_EVERY")
     bad = tmp_path / "bad.ebwt"
     bad.write_text("ACGT#ACNGT#")
     assert cli.main(["-1", str(bad), "-o", str(out)], device="cpu") == 1

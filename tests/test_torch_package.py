@@ -38,7 +38,8 @@ def _imported_modules(path):
 
 _TOOLS = ("build_ebwt", "context2vcf", "ebwt", "filter_snp", "genhuge",
           "pebwt2indel", "run_huge", "sam2vcf", "simulate", "snp2vcf",
-          "snp_vs_vcf", "sort_vcf", "validate_huge", "vcf_vs_vcf")
+          "snp_vs_vcf", "sort_vcf", "tracetop", "validate_huge",
+          "vcf_vs_vcf")
 
 
 def test_port_imports_no_jax():
