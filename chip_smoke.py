@@ -102,7 +102,29 @@ Phases, each of which must pass (the script exits 1 otherwise):
     .snp, with equal stats;
 23. ``index_cache_1G``: phase 12's input packed into its sidecar, then mode
     1 through ``cli.main`` with ``EBWT_INDEX_CACHE=1`` reading it (packing
-    fails the phase): the .snp must equal phase 12's.
+    fails the phase): the .snp must equal phase 12's;
+24. ``past2g31_data``: phase 4's eBWT and phase 9's pair files with every
+    byte repeated 19 times (``write_kfold``, chunk by chunk), which is the
+    eBWT (and document array) of every read repeated 19 times in place:
+    2,206,844,243 positions, past 2^31, in modes 1 and 3, and n1 + n2 the
+    same in mode 2; and the 2-fold files (232,299,394 positions). A
+    coordinate-range witness on a duplicated-read input, not a benchmark
+    cell; the files (about 10 GB) are deleted when phase 27 ends;
+25. ``past2g31_rank``: ``rank_decode`` on the 19-fold index at positions
+    0, 127, 128, 2^31 - 129, 2^31 - 1, 2^31, 2^31 + 1, 2^31 + 128, n - 1, n
+    and 2^20 random ones in [2^31, n], against its plain version on the card
+    (max_abs_err 0) and, at twenty of them, against A/C/G/T counts that
+    numpy takes straight from the file's bytes;
+26. ``past2g31_mode1``, ``_mode3`` and ``_mode2``: each mode through
+    ``cli.main`` on the 19-fold input on its default (bit-packed) route and
+    on the 2-fold input on its (dense) one, the launch counts reset just
+    before each and read just after: leaves, nodes, n_min and max_pending
+    must be equal, lcp_values (mode 2: da_values too) n, and mode 1 must
+    peak at most 12 bytes per position; wall, phase seconds, peak, launches,
+    queries, and the .snp's bytes and sha256;
+27. ``mesh4_past2g31_mode1``, ``_mode3`` and ``_mode2``: the 19-fold inputs
+    with ``EBWT_MESH=4`` (as phase 18): the .snp sha256 and the stats must
+    equal phase 26's.
 
 It prints the per-kernel JSON line, then the card line, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -139,6 +161,9 @@ HUGE_GENOME_LEN = 41_600_000  # the 1.05G-position scale cell
 # the JAX package's round-3 record, 1,050,399,394, predates a change there
 HUGE_N = 1_050_398_182
 PACKED_MAX_BYTES_PER_POS = 12
+# the past-2^31 witness: phase 4's eBWT with every read repeated 19 times
+KFOLD = 19
+KFOLD_N = 2_206_844_243
 # floors of the 116M evaluation loop, well under the TPU-era record on the
 # same recipe (VALIDATION_r05.json: 0.9555 / 0.9859 / 1.0 at 2.575G)
 VALIDATE_MIN_SENSITIVITY = 0.85
@@ -1344,6 +1369,254 @@ def phase_index_cache_1g(results: dict, data_dir: str, log_dir: str) -> None:
         f"equal: {', '.join(_COMPARED)}")
 
 
+def write_kfold(src: str, dst: str, k: int, chunk: int = 1 << 24) -> int:
+    """Each byte of ``src`` repeated ``k`` times in place, written chunk by
+    chunk (host memory stays at ``k * chunk`` bytes); returns the bytes
+    written. Repeating each read of a collection k times in place gives
+    this eBWT (and document array): the terminators order by read index, so
+    the k copies of a suffix tie only among themselves and keep their
+    order."""
+    data = np.memmap(src, dtype=np.uint8, mode="r")
+    with open(dst + ".tmp", "wb") as f:
+        for lo in range(0, len(data), chunk):
+            np.repeat(data[lo:lo + chunk], k).tofile(f)
+    os.replace(dst + ".tmp", dst)
+    return os.path.getsize(dst)
+
+
+# each k-fold file's name after ``kfold<k>``, by its source's key
+_KFOLD_FILES = {"ebwt": ".ebwt", "a.ebwt": "_a.ebwt", "b.ebwt": "_b.ebwt",
+                "merged.ebwt": "_merged.ebwt", "merged.da": "_merged.da"}
+
+
+def phase_past2g31_data(results: dict, data_dir: str) -> None:
+    """The k-fold files of phase 4's eBWT and phase 9's pair data: k = 19
+    (2,206,844,243 positions, past 2^31) and k = 2 (below it)."""
+    src = dict(results["pair_paths"], ebwt=results["full_path"])
+    kfold = {}
+    for k in (KFOLD, 2):
+        paths = {}
+        for key, name in _KFOLD_FILES.items():
+            paths[key] = os.path.join(data_dir, f"kfold{k}{name}")
+            t0 = time.perf_counter()
+            size = write_kfold(src[key], paths[key], k)
+            log(f"[past2g31_data] {paths[key]}: {size} bytes in "
+                f"{time.perf_counter() - t0:.2f} s")
+        kfold[k] = paths
+        n = {key: os.path.getsize(p) for key, p in paths.items()}
+        want = k * results["n"]
+        if not (n["ebwt"] == n["merged.ebwt"] == n["merged.da"] == want
+                == n["a.ebwt"] + n["b.ebwt"]):
+            raise AssertionError(f"{k}-fold sizes {n}, not {want}")
+    results["kfold"] = kfold
+    if results["n"] * KFOLD != KFOLD_N:
+        raise AssertionError(f"{KFOLD} x {results['n']} is not {KFOLD_N}")
+    log(f"[past2g31_data] n = {KFOLD_N} > 2^31 = {2**31} in modes 1 and 3, "
+        f"n1 + n2 = {KFOLD_N} in mode 2; the 2-fold input {2 * results['n']}")
+
+
+def _counts_from_bytes(path: str, positions: list,
+                       chunk: int = 1 << 22) -> dict:
+    """A, C, G, T counts of the file's bytes before each position, by
+    ``np.count_nonzero`` over the bytes, chunk by chunk (no code shared
+    with the packer or the rank)."""
+    data = np.memmap(path, dtype=np.uint8, mode="r")
+
+    def count(block):
+        return np.array([np.count_nonzero(block == c) for c in b"ACGT"])
+
+    run = np.zeros(4, np.int64)
+    out, todo = {}, sorted(set(positions))
+    for lo in range(0, len(data) + 1, chunk):
+        block = data[lo:lo + chunk]
+        while todo and todo[0] <= lo + len(block):
+            p = todo.pop(0)
+            out[p] = (run + count(block[:p - lo])).tolist()
+        run += count(block)
+    if todo:
+        raise AssertionError(f"positions past the file: {todo}")
+    return out
+
+
+def phase_past2g31_rank(results: dict) -> None:
+    """``rank_decode`` on the 19-fold index at positions past 2^31: against
+    its plain version on the card, and against counts taken straight from
+    the file's bytes."""
+    import torch
+
+    from ebwt2indel_torch.models import fm_index as fm_ops
+    from ebwt2indel_torch.ops import rank, rank_cuda
+
+    path = results["kfold"][KFOLD]["ebwt"]
+    t0 = time.perf_counter()
+    fm = fm_ops.FMIndex.from_file(path, device="cuda")
+    n = fm.n
+    log(f"[past2g31_rank] index of {n} positions ({fm.blocks.shape[0]} block "
+        f"rows) packed and uploaded in {time.perf_counter() - t0:.2f} s")
+    big = 2**31
+    edges = [0, 127, 128, big - 129, big - 1, big, big + 1, big + 128,
+             n - 1, n]
+    rng = np.random.default_rng(31)
+    rand = rng.integers(big, n + 1, size=1 << 20)
+    q = torch.from_numpy(np.concatenate([edges, rand])).cuda()
+    rank_cuda.reset_launches()
+    got = rank.parallel_rank(fm.blocks, q)
+    torch.cuda.synchronize()
+    launches = rank_cuda.LAUNCHES["rank_decode"]
+    want = rank.parallel_rank_plain(fm.blocks, q)
+    err = int((got - want).abs().max())
+    log(f"[past2g31_rank] {q.numel()} queries (the edges {edges} and 2^20 "
+        f"in [2^31, n]), rows up to {int(q.max()) >> 7}: rank_decode "
+        f"{launches} launch, max_abs_err {err} against the plain version")
+    picks = edges + rand[:10].tolist()
+    t0 = time.perf_counter()
+    counts = _counts_from_bytes(path, picks)
+    bad = [p for k, p in enumerate(picks) if got[k].tolist() != counts[p]]
+    log(f"[past2g31_rank] {len(picks)} positions against the A/C/G/T counts "
+        f"of the file's bytes (numpy, {time.perf_counter() - t0:.2f} s): "
+        f"{len(picks) - len(bad)} equal; at n: {counts[n]}")
+    del fm, got, want, q
+    if err != 0 or bad or launches != 1:
+        raise AssertionError(f"past2g31_rank: max_abs_err {err}, unequal at "
+                             f"{bad}, {launches} launches")
+
+
+@contextlib.contextmanager
+def _traversal_stats(got: list):
+    """Each single-device traversal's stats, with its route, appended to
+    ``got`` (the CLI's log has no ``max_pending`` in modes 3 and 2)."""
+    from ebwt2indel_torch.models import traverse
+
+    names = ("navigate_one_bwt", "navigate_two_bwts")
+    real = {k: getattr(traverse, k) for k in names}
+
+    def wrap(fn):
+        def run(*a, **k):
+            res = fn(*a, **k)
+            got.append(dict(res.stats, packed=res.packed))
+            return res
+        return run
+
+    for k in names:
+        setattr(traverse, k, wrap(real[k]))
+    try:
+        yield got
+    finally:
+        for k in names:
+            setattr(traverse, k, real[k])
+
+
+def _kfold_args(paths: dict, mode: int) -> list:
+    if mode == 1:
+        return ["-1", paths["ebwt"]]
+    return _pair_args(paths, mode)
+
+
+_KFOLD_SAME = ("leaves", "nodes", "n_min", "max_pending")
+
+
+def phase_past2g31(results: dict, mode: int, data_dir: str,
+                   log_dir: str) -> None:
+    """A mode through ``cli.main`` on the 19-fold input (past 2^31) on its
+    default route, then on the 2-fold input (dense): the suffix tree's
+    counts must be the same, and each run's LCP values (mode 2: DA values
+    too) n."""
+    import gc
+
+    import torch
+
+    label = f"past2g31_mode{mode}"
+    runs = {}
+    for k in (KFOLD, 2):
+        paths = results["kfold"][k]
+        out = os.path.join(data_dir, f"{label}_k{k}.snp")
+        gc.collect()
+        torch.cuda.empty_cache()
+        with _traversal_stats([]) as trav:
+            r = _cli_run(_kfold_args(paths, mode) + ["-o", out],
+                         os.path.join(log_dir,
+                                      f"chip_smoke_cli_{label}_k{k}.log"))
+        snp = open(out, "rb").read()
+        st = (_mode1_log(r["text"]) if mode == 1
+              else _pair_log(r["text"], snp, mode))
+        n = k * results["n"]
+        r.update(stats=st, trav=trav[0], out=out, n=n,
+                 sha=hashlib.sha256(snp).hexdigest(), bytes=len(snp))
+        runs[k] = r
+        log(f"[{label}] k={k}: {n} positions, {r['wall']:.4f} s wall "
+            f"({n / r['wall'] / 1e6:.3f} Mpos/s), "
+            f"{'packed' if r['trav']['packed'] else 'dense'} route; phase "
+            f"seconds {st['seconds']}")
+        log(f"[{label}] k={k}: peak {r['peak']} bytes ({r['peak'] / n:.3f} "
+            f"B/position); rank_decode {r['launches']['rank_decode']} "
+            f"launches, {r['queries']['rank_decode']} queries")
+        log(f"[{label}] k={k}: stats " + ", ".join(
+            f"{x} {v}" for x, v in st.items() if x not in ("n", "seconds"))
+            + f", max_pending {r['trav']['max_pending']}")
+        log(f"[{label}] k={k}: .snp {r['bytes']} bytes, sha256 {r['sha']}")
+        if st["n"] != n or r["trav"]["lcp_values"] != n or \
+                (mode == 2 and r["trav"]["da_values"] != n):
+            raise AssertionError(f"{label} k={k}: n {st['n']}, lcp_values "
+                                 f"{r['trav']['lcp_values']}, not {n}")
+        if r["launches"]["rank_decode"] <= 0 or r["bytes"] == 0:
+            raise AssertionError(f"{label} k={k}: no rank_decode launch or "
+                                 "no events")
+    big, two = runs[KFOLD], runs[2]
+    if not big["trav"]["packed"] or two["trav"]["packed"]:
+        raise AssertionError(f"{label}: routes {big['trav']['packed']} / "
+                             f"{two['trav']['packed']}, not packed / dense")
+    for x in _KFOLD_SAME:
+        if big["trav"][x] != two["trav"][x]:
+            raise AssertionError(f"{label} {x}: 19-fold {big['trav'][x]} != "
+                                 f"2-fold {two['trav'][x]}")
+    per_pos = big["peak"] / big["n"]
+    if mode == 1 and per_pos > PACKED_MAX_BYTES_PER_POS:
+        raise AssertionError(f"{label}: the packed route peaked at "
+                             f"{per_pos:.3f} bytes per position, over "
+                             f"{PACKED_MAX_BYTES_PER_POS}")
+    results[label] = big
+    log(f"[{label}] {', '.join(_KFOLD_SAME)} equal to the 2-fold run's; "
+        f"lcp_values = n" + (", da_values = n" if mode == 2 else ""))
+
+
+def phase_mesh_past2g31(results: dict, mode: int, data_dir: str,
+                        log_dir: str) -> None:
+    """``phase_mesh`` on the 19-fold input: the .snp and stats of the
+    4-shard mesh must equal the single device's ``past2g31`` run's."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    r = results[f"past2g31_mode{mode}"]
+    phase_mesh(f"mesh4_past2g31_mode{mode}",
+               _kfold_args(results["kfold"][KFOLD], mode), r["out"],
+               r["stats"], r["n"], data_dir, log_dir, mode)
+
+
+def run_past2g31(phase, results: dict, data_dir: str, log_dir: str) -> None:
+    """Phases 24-27 through ``phase``; the k-fold files (about 10 GB) are
+    deleted when the last of them ends, whether it passed or not."""
+    try:
+        phase("past2g31_data", phase_past2g31_data, results, data_dir)
+        if "kfold" not in results:
+            return
+        phase("past2g31_rank", phase_past2g31_rank, results)
+        for mode in (1, 3, 2):
+            phase(f"past2g31_mode{mode}", phase_past2g31, results, mode,
+                  data_dir, log_dir)
+        for mode in (1, 3, 2):
+            if f"past2g31_mode{mode}" in results:
+                phase(f"mesh4_past2g31_mode{mode}", phase_mesh_past2g31,
+                      results, mode, data_dir, log_dir)
+    finally:
+        results.pop("kfold", None)
+        for name in os.listdir(data_dir):
+            if name.startswith("kfold"):
+                os.remove(os.path.join(data_dir, name))
+
+
 def phase_mesh_nccl(results: dict, data_dir: str, log_dir: str) -> None:
     """Modes 1, 3 and 2 at full size as two processes of two shards each on
     two cards, joined over NCCL through EBWT_COORD."""
@@ -1548,6 +1821,9 @@ def main() -> int:
                   os.path.join(here, args.log_dir))
             phase("index_cache_1G", phase_index_cache_1g, results, data_dir,
                   os.path.join(here, args.log_dir))
+        if all(k in results for k in ("launches", "pair_paths")):
+            run_past2g31(phase, results, data_dir,
+                         os.path.join(here, args.log_dir))
     log(f"[done] {time.perf_counter() - t0:.1f} s; failed phases: "
         f"{failures or 'none'}")
     if failures or not kernels:

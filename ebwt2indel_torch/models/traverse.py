@@ -102,13 +102,33 @@ def _char_major(children: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     return children.transpose(0, 1)[keep.transpose(0, 1)]
 
 
+# The longest vector that one ``index_add_`` adds into. On CUDA, PyTorch's
+# ``index_add_`` into a tensor of 2^31 elements or more does not launch
+# ("invalid configuration argument", PyTorch 2.11 on an H100, at
+# 2,206,844,243 positions), so adds into a longer vector go window by window.
+ADD_WINDOW = 2**30
+
+
+def add_at(x: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> None:
+    """``x.index_add_(0, idx, val)`` into a vector of any length: one
+    ``index_add_`` per window of ``ADD_WINDOW`` elements, each with the
+    entries that land in it."""
+    n = x.shape[0]
+    if n <= ADD_WINDOW:
+        x.index_add_(0, idx, val)
+        return
+    for lo in range(0, n, ADD_WINDOW):
+        m = (idx >= lo) & (idx < lo + ADD_WINDOW)
+        x[lo:lo + ADD_WINDOW].index_add_(0, idx[m] - lo, val[m])
+
+
 def _add_bounds(dif: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
     """+1 at each ``lo`` and -1 at each ``hi`` of an int32 delta vector: its
     prefix sum is > 0 exactly on the union of the ranges [lo, hi)."""
     idx = torch.cat([lo, hi])
     val = torch.ones_like(idx, dtype=torch.int32)
     val[lo.shape[0]:] = -1
-    dif.index_add_(0, idx, val)
+    add_at(dif, idx, val)
 
 
 def _border_values(coords: torch.Tensor, depth: torch.Tensor, stats,
@@ -161,7 +181,7 @@ def _node_body(fm: FMIndex, chunk, flags, stats, K: int, k_right: int):
     # whole traversal, so the add never collides (traverse.py:432-436)
     border = chunk[:, 1:5]
     on = v > 0
-    flags.index_add_(0, border[on], v[on])
+    add_at(flags, border[on], v[on])
     stats[0] += chunk.shape[0]
 
     ext = fm_ops.extend_node(fm, chunk)  # (C, 4, 7)
@@ -224,7 +244,7 @@ def _node_pair_body(fm1: FMIndex, fm2: FMIndex, chunk, flags, stats, K: int,
     # a singleton position gets its DA bit from exactly one node pair, and
     # the LCP bits are written once each as in mode 1 (traverse.py:647-649),
     # so the bits add without carries
-    flags.index_add_(0, pos, v)
+    add_at(flags, pos, v)
     ext1 = fm_ops.extend_coords(fm1, chunk[:, 0:6])  # (C, 4, 6)
     ext2 = fm_ops.extend_coords(fm2, chunk[:, 6:12])
     return node_pair_children(ext1, ext2, chunk)

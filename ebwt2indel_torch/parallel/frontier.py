@@ -246,7 +246,7 @@ def _node_step(sfm: ShardedFM, chunks: dict, flags: dict, stats: dict,
         pos = nodes[:, 1:5][on] - s * L
         val = v[on]
         mine = pos < L
-        flags[s].index_add_(0, pos[mine], val[mine])
+        traverse.add_at(flags[s], pos[mine], val[mine])
         spills[s] = torch.stack([pos[~mine] - L,
                                  val[~mine].to(torch.int64)], 1)
         ranks = _narrow_rank(sfm, s, nodes[:, :6])  # (C, 6, 4)
@@ -260,7 +260,8 @@ def _node_step(sfm: ShardedFM, chunks: dict, flags: dict, stats: dict,
     got = mesh.shift(spills, 1)
     for s in mesh.local:
         if got[s] is not None:
-            flags[s].index_add_(0, got[s][:, 0], got[s][:, 1].to(torch.uint8))
+            traverse.add_at(flags[s], got[s][:, 0],
+                            got[s][:, 1].to(torch.uint8))
 
     W = _gather_wide(sfm, wide)  # (NW, 11): node rows, then their 4 values
     w_children = W[:, :7]
@@ -276,7 +277,8 @@ def _node_step(sfm: ShardedFM, chunks: dict, flags: dict, stats: dict,
         for s in mesh.local:
             m = (pos >= s * L) & (pos < (s + 1) * L)
             dev = mesh.devices[s]
-            flags[s].index_add_(0, (pos[m] - s * L).to(dev), val[m].to(dev))
+            traverse.add_at(flags[s], (pos[m] - s * L).to(dev),
+                            val[m].to(dev))
 
     out = {s: [] for s in mesh.local}
     _route(sfm, children, w_children, out)
@@ -310,7 +312,7 @@ def _add_deltas(difs: list, ent: torch.Tensor, base: int, L: int):
     loc = ent[:, 0] - base
     for lane, d in enumerate(difs):
         m = (ent[:, 1] == lane) & (loc >= 0) & (loc < L)
-        d.index_add_(0, loc[m], ent[m, 2].to(torch.int32))
+        traverse.add_at(d, loc[m], ent[m, 2].to(torch.int32))
     past = loc >= L
     spill = ent[past]
     spill[:, 0] = loc[past] - L
@@ -536,8 +538,8 @@ def _node_pair_step(sfm1: ShardedFM, sfm2: ShardedFM, Lm: int, chunks: dict,
         pos, v = traverse.node_pair_flags(chunk, stats[s], K, k_right)
         entries[s] = torch.stack([pos, v.to(torch.int64)], 1)
         narrow[s], wide[s] = _split_narrow(chunk, [0, 5, 6, 11])
-    _add_merged(sfm1, entries, Lm, lambda d, e: flags[d].index_add_(
-        0, e[:, 0] - d * Lm, e[:, 1].to(torch.uint8)))
+    _add_merged(sfm1, entries, Lm, lambda d, e: traverse.add_at(
+        flags[d], e[:, 0] - d * Lm, e[:, 1].to(torch.uint8)))
 
     r2 = _routed_rank(sfm2, {s: c[:, 6:12] for s, c in narrow.items()})
     children = {s: traverse.node_pair_children(

@@ -7,7 +7,10 @@ it ran on (the port's copy of the repo-root ``tools/run_huge.py``).
         [--skip-ref] [--device cuda|cpu]
 
 The first run pays the kernel build and the warm-up, the second is the
-steady-state number. Where ``.ref_build/ebwt2InDel`` exists (the compiled
+steady-state number. The report adds the device, the second run's seconds
+by phase (``phase_seconds``) and, on a card, the peak device memory of the
+two runs (``peak_bytes``, ``torch.cuda.max_memory_allocated``; null on the
+CPU). Where ``.ref_build/ebwt2InDel`` exists (the compiled
 reference), it then runs ``-1 IN -o OUT.snp.ref`` and byte-compares, which
 fills ``parity``, ``ref_seconds`` and ``vs_baseline``. Without it, or with
 ``--skip-ref``, those stay null. Exit code 1 means the outputs differ.
@@ -71,6 +74,7 @@ def main(argv=None) -> int:
         "value": None, "unit": "pos/s", "positions": n,
         "warm_seconds": None, "cold_seconds": None, "ref_seconds": None,
         "parity": None, "vs_baseline": None, "device": _device_line(dev),
+        "phase_seconds": None, "peak_bytes": None,
     }
 
     def emit():
@@ -84,10 +88,17 @@ def main(argv=None) -> int:
                 json.dump(state, f)
                 f.write("\n")
 
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats(dev)
     for key in ("cold_seconds", "warm_seconds"):
         t0 = time.perf_counter()
-        pipeline.run_one_dataset(cfg, device=dev)
+        st = pipeline.run_one_dataset(cfg, device=dev)
         state[key] = time.perf_counter() - t0
+        state["phase_seconds"] = st["seconds"]
+        if dev.type == "cuda":
+            state["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         print(f"[run_huge] {key.split('_')[0]} end-to-end {state[key]:.3f} s "
               f"({n / state[key] / 1e6:.3f} Mpos/s)", flush=True)
         emit()

@@ -3,8 +3,9 @@ its plain PyTorch version, modes 1, 2 and 3 on the card against the same
 mode on the CPU, the bit-packed route against the dense route, a traversal
 resumed from its checkpoint against an uninterrupted run, modes 1, 3 and 2
 on a 4-shard mesh held by the card against the CPU's single-device run, a
-mesh run resumed from its checkpoints against an uninterrupted one, and an
-index read from its cache against a fresh one.
+mesh run resumed from its checkpoints against an uninterrupted one, an
+index read from its cache against a fresh one, and the windowed add into a
+vector past 2^31 elements.
 A CUDA kernel has no CPU mode, so without a card these skip. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -348,3 +349,24 @@ def test_index_cache_on_card(tmp_path, rng, monkeypatch):
     before = rank_cuda.LAUNCHES["rank_decode"]
     assert run("warm.snp") == want
     assert rank_cuda.LAUNCHES["rank_decode"] > before
+
+
+def test_add_past_2_31_on_card():
+    """``traverse.add_at`` into a uint8 vector of 2^31 + 4,096 elements (2
+    GB) on the card, where a single ``index_add_`` does not launch: each
+    value lands at its position on both sides of 2^31, repeats add up, and
+    nothing else moves."""
+    _needs_cuda()
+    big = 2**31
+    n = big + 4096
+    x = torch.zeros(n, dtype=torch.uint8, device="cuda")
+    pos = [0, 2**30 - 1, 2**30, big - 1, big, big + 1, n - 1, big]
+    idx = torch.tensor(pos, device="cuda")
+    val = torch.arange(1, len(pos) + 1, dtype=torch.uint8, device="cuda")
+    traverse.add_at(x, idx, val)
+    want = {}
+    for p, v in zip(pos, range(1, len(pos) + 1)):
+        want[p] = want.get(p, 0) + v
+    assert x[torch.tensor(sorted(want), device="cuda")].tolist() == \
+        [want[p] for p in sorted(want)]
+    assert int(x.sum(dtype=torch.int64)) == sum(want.values())

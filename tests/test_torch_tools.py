@@ -46,8 +46,9 @@ def test_read_matrix_builder_matches_ebwt_of_reads(rng):
 
 @pytest.mark.parametrize("extra", [["--skip-ref"], []])
 def test_run_huge_report(tmp_path, extra, capsys):
-    """Cold and warm runs fill the REPORT_*.json keys and the device; the
-    reference leg runs only where .ref_build/ebwt2InDel exists."""
+    """Cold and warm runs fill the REPORT_*.json keys, the device and the
+    warm run's phase seconds (no peak on the CPU); the reference leg runs
+    only where .ref_build/ebwt2InDel exists."""
     inp = tmp_path / "in.ebwt"
     n = genhuge.build(2000, str(inp), coverage=10, log=lambda *a: None)
     rep = tmp_path / "rep.json"
@@ -57,7 +58,10 @@ def test_run_huge_report(tmp_path, extra, capsys):
     got = json.loads(rep.read_text())
     root_keys = {"metric", "value", "unit", "positions", "warm_seconds",
                  "cold_seconds", "ref_seconds", "parity", "vs_baseline"}
-    assert set(got) == root_keys | {"device"}
+    assert set(got) == root_keys | {"device", "phase_seconds", "peak_bytes"}
+    assert set(got["phase_seconds"]) == {"index", "leaf_phase", "node_phase",
+                                         "cluster", "call_emit"}
+    assert got["peak_bytes"] is None
     assert got["positions"] == n and got["unit"] == "pos/s"
     assert got["cold_seconds"] > 0 and got["warm_seconds"] > 0
     assert got["value"] == pytest.approx(n / got["warm_seconds"])
