@@ -29,11 +29,15 @@ and 2 on one device), ``EBWT_PROFILE=<dir>`` (a trace of each single-device
 run, ``utils/profile.py``, read by ``tools/tracetop.py``) and
 ``EBWT_PROGRESS`` (a line per traversal chunk on one device,
 ``traverse._run_phase``).
+
+A run's last line, ``[timing] spans {...}``, is its ``stats["seconds"]``
+as JSON: every span of the run (``utils/profile.py``), with no switch.
 """
 
 from __future__ import annotations
 
 import getopt
+import json
 import os
 import sys
 
@@ -177,9 +181,11 @@ def main(argv=None, *, device="cuda") -> int:
             n_mesh = n_mesh or launch.process_count()
             cfg = launch.redirect_output(cfg)
         if n_mesh > 1:
-            run_sharded(cfg, mesh.Mesh(n_mesh, device=device), **ckpt)
+            stats = run_sharded(cfg, mesh.Mesh(n_mesh, device=device),
+                                **ckpt)
         else:
-            run(cfg, device=device, **ckpt)
+            stats = run(cfg, device=device, **ckpt)
+        print(f"[timing] spans {json.dumps(stats['seconds'])}")
     except ValueError as e:
         # e.g. forbidden character in the input BWT — the reference prints the
         # message and exits 1 (dna_string.hpp:90-96)

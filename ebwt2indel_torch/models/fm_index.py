@@ -65,14 +65,20 @@ class FMIndex:
                                   pb.term, device)
 
     @staticmethod
-    def from_file(path: str, term: int = ord("#"), device="cuda") -> "FMIndex":
-        """Pack and upload an eBWT file; with ``EBWT_INDEX_CACHE`` set (read
-        at each call, as the JAX package's ``from_file`` does) the packed
-        index comes from or goes to its ``<path>.idx.npz`` sidecar
-        (``packing.pack_file_cached``) and is uploaded like a fresh one."""
+    def pack_file(path: str, term: int = ord("#")) -> packing.PackedBwt:
+        """Read and pack an eBWT file on the host; with ``EBWT_INDEX_CACHE``
+        set (read at each call, as the JAX package's ``from_file`` does)
+        the packed index comes from or goes to its ``<path>.idx.npz``
+        sidecar (``packing.pack_file_cached``)."""
         pack = packing.pack_file_cached if os.environ.get(
             "EBWT_INDEX_CACHE") else packing.pack_file
-        return FMIndex.from_packed(pack(path, term), device)
+        return pack(path, term)
+
+    @staticmethod
+    def from_file(path: str, term: int = ord("#"), device="cuda") -> "FMIndex":
+        """Pack (``pack_file``) and upload an eBWT file; a cached index is
+        uploaded like a fresh one."""
+        return FMIndex.from_packed(FMIndex.pack_file(path, term), device)
 
     def root(self) -> torch.Tensor:
         """Root suffix-tree node (dna_bwt.hpp:296-308)."""

@@ -8,15 +8,28 @@ Phases: pack and upload the index (fm_index.py), the leaf then node
 wavefront (traverse.py), cluster detection (cluster.py), the filter,
 consensus and right-context walks (call.py), and host emission
 (emit_vec.py). The log lines are the JAX package's, plus timing lines; each
-run returns ``stats["seconds"]``, the wall time of each phase, each ended by
-a device synchronise. ``EBWT_PROFILE=<dir>`` traces each run
-(``utils/profile.py``), each of those phases marked.
+run returns ``stats["seconds"]``, its spans (``utils/profile.py``): the
+wall time of each phase, each ended by a device synchronise, and of the
+parts timed inside it. ``EBWT_PROFILE=<dir>`` traces each run, each span
+marked.
+
+The parts, each placed here at its call site:
+
+* ``index.pack``: reading the eBWT file(s) and packing them on the host;
+  ``index.upload``: the upload and the phase's closing synchronise (the
+  pageable copies block); ``index.da_side``: mode 3's DA-side worker,
+  which runs beside phases 1-3.
+* ``call_emit.walks``: the calling walks through their last device-to-host
+  copy; ``call_emit.write``: the host's emission and the ``.snp`` write;
+  ``call_emit.da_rank``: the document array's rank (modes 2 and 3), on the
+  device's clock.
+* ``node_phase.wait`` is the traversal's (``traverse.py``).
 """
 
 from __future__ import annotations
 
+import contextvars
 import sys
-import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
@@ -27,7 +40,7 @@ from .. import device as device_mod
 from ..ops import bits, packing, rank
 from ..utils import dna
 from ..utils.config import Config
-from ..utils.profile import phase, profiled
+from ..utils.profile import profiled, span, spent
 from . import call, cluster, emit, emit_vec, traverse
 from .fm_index import FMIndex
 
@@ -70,6 +83,22 @@ def _anchor_and_clusters(res: traverse.TraversalResult, n: int,
             cluster.find_clusters_device(res.thr_K, res.minima, mcov_out))
 
 
+def _load_index(path: str, term: int, dev: torch.device) -> FMIndex:
+    """Pack an eBWT file on the host (``index.pack``) and upload it
+    (``index.upload``, ended by a synchronise)."""
+    with span("index.pack"):
+        pb = FMIndex.pack_file(path, term)
+    with span("index.upload"):
+        fm = FMIndex.from_packed(pb, dev)
+        device_mod.synchronize(dev)
+    return fm
+
+
+def _log_phases(log, extra: str = "") -> None:
+    log(f"[timing] leaf phase {spent('leaf_phase'):.2f}s, "
+        f"node phase {spent('node_phase'):.2f}s{extra}\n")
+
+
 @profiled
 def run_one_dataset(cfg: Config, log=_log, device="cuda",
                     packed: bool | None = None, ckpt_dir=None,
@@ -78,52 +107,38 @@ def run_one_dataset(cfg: Config, log=_log, device="cuda",
     (``traverse.navigate_one_bwt``; None: by ``traverse.LEAN_N``), and
     ``ckpt_dir``/``ckpt_every`` its checkpoint and resume. Returns
     the JAX package's stats (events, cluster_nr, traversal counts,
-    n_clusters) plus ``seconds``: the wall time of each phase, each ended
-    by a device synchronise."""
+    n_clusters) plus ``seconds``, the run's spans."""
     dev = device_mod.resolve(device)
     cfg = cfg.resolved()
-    seconds = {}
-    t0 = time.perf_counter()
     log("Phase 1/4: loading and indexing eBWT ... ")
-    with phase("index"):
-        fm = FMIndex.from_file(cfg.input1, cfg.term, dev)
-        device_mod.synchronize(dev)
-    t1 = time.perf_counter()
-    seconds["index"] = t1 - t0
-    log(f"done. [{t1 - t0:.2f}s]")
+    with span("index") as sp:
+        fm = _load_index(cfg.input1, cfg.term, dev)
+    log(f"done. [{sp.seconds:.2f}s]")
 
     log("\nPhase 2-3/4: suffix-tree wavefront navigation.")
     res = traverse.navigate_one_bwt(fm, cfg.K, cfg.k_right, packed,
                                     ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
-    t2 = time.perf_counter()
     st = res.stats
-    seconds["leaf_phase"] = st.pop("leaf_seconds")
-    seconds["node_phase"] = st.pop("node_seconds")
     log(f"Computed {st['lcp_values']}/{fm.n} LCP values.")
     log(f"Found {st['n_min']} LCP minima.")
     log(f"Max pending frontier = {st['max_pending']}")
     log(f"Processed {st['leaves']} suffix-tree leaves and {st['nodes']} "
-        f"nodes. [{t2 - t1:.2f}s]")
-    log(f"[timing] leaf phase {seconds['leaf_phase']:.2f}s, "
-        f"node phase {seconds['node_phase']:.2f}s\n")
+        f"nodes. [{spent('leaf_phase', 'node_phase'):.2f}s]")
+    _log_phases(log)
 
     log("Phase 4/4: detecting SNPs and indels.")
     log(f"Output events will be stored in {cfg.output}")
-    with phase("cluster"):
+    with span("cluster") as sp:
         next_thr, cl = _anchor_and_clusters(res, fm.n, cfg.mcov_out)
         del res
         device_mod.synchronize(dev)
-    t4 = time.perf_counter()
-    seconds["cluster"] = t4 - t2
-    log(f"[timing] cluster detect (device) {t4 - t2:.2f}s")
+    log(f"[timing] cluster detect (device) {sp.seconds:.2f}s")
 
-    with phase("call_emit"):
+    with span("call_emit") as sp:
         stats = _call_and_emit_single(fm, cl, next_thr, cfg)
-    seconds["call_emit"] = time.perf_counter() - t4
-    log(f"[timing] call+emit {seconds['call_emit']:.2f}s")
+    log(f"[timing] call+emit {sp.seconds:.2f}s")
     stats.update(st)
     stats["n_clusters"] = cl.n_clusters
-    stats["seconds"] = seconds
 
     log_single_summary(cl, stats, log)
     return stats
@@ -173,36 +188,42 @@ def call_and_emit_single(cl: cluster.Clusters, cfg: Config, dev, *,
         if B == 0:
             return {"events": 0, "cluster_nr": writer.cluster_nr}
 
-        # cheap filter first, on the device; only the B survivor booleans
-        # come to the host (the reference rejects clusters on base counts
-        # before any context extraction, ebwt2InDel.cpp:947-966)
-        quirk, _pure = range_counts(cl.begins, cl.ends)
-        freq_d = quirk >= cfg.mcov_out  # TERM->A quirk included
-        nfreq = freq_d.sum(1)
-        passes_d = nfreq >= 2
-        if cfg.max_variants_per_position > 0:
-            passes_d &= nfreq <= cfg.max_variants_per_position
-        passes = passes_d.cpu().numpy()
-        sel = np.flatnonzero(passes)
-        if len(sel) == 0:
-            return {"events": 0, "cluster_nr": 1}
+        with span("call_emit.walks"):
+            # cheap filter first, on the device; only the B survivor
+            # booleans come to the host (the reference rejects clusters on
+            # base counts before any context extraction,
+            # ebwt2InDel.cpp:947-966)
+            quirk, _pure = range_counts(cl.begins, cl.ends)
+            freq_d = quirk >= cfg.mcov_out  # TERM->A quirk included
+            nfreq = freq_d.sum(1)
+            passes_d = nfreq >= 2
+            if cfg.max_variants_per_position > 0:
+                passes_d &= nfreq <= cfg.max_variants_per_position
+            passes = passes_d.cpu().numpy()
+            sel = np.flatnonzero(passes)
+            if len(sel) == 0:
+                return {"events": 0, "cluster_nr": 1}
 
-        sel_d = torch.from_numpy(sel).to(dev)
-        sb = cl.begins[sel_d]
-        se = cl.ends[sel_d]
-        ctx, support, full = consensus(sb, se)
-        pos, found = anchor(sb, se)
-        seq, seqlen = dna(pos, found)
+            sel_d = torch.from_numpy(sel).to(dev)
+            sb = cl.begins[sel_d]
+            se = cl.ends[sel_d]
+            ctx, support, full = consensus(sb, se)
+            pos, found = anchor(sb, se)
+            seq, seqlen = dna(pos, found)
+            found, freq, full, support, ctx, seq, seqlen = _to_host(
+                found, freq_d[sel_d], full, support, ctx, seq, seqlen)
 
-        out = emit_vec.emit_single(
-            out_f, cfg, found.cpu().numpy(), passes[sel],
-            freq_d[sel_d].cpu().numpy(), full.cpu().numpy(),
-            support.cpu().numpy(),
-            _decode_rows(ctx.cpu().numpy(), cfg.term),
-            _decode_rows(seq.cpu().numpy(), cfg.term),
-            seqlen.cpu().numpy(),
-        )
-        return out
+        with span("call_emit.write"):
+            return emit_vec.emit_single(
+                out_f, cfg, found, passes[sel], freq, full, support,
+                _decode_rows(ctx, cfg.term), _decode_rows(seq, cfg.term),
+                seqlen)
+
+
+def _to_host(*tensors) -> list[np.ndarray]:
+    """The walks' results on the host, copied in order (each copy waits
+    for the device)."""
+    return [t.cpu().numpy() for t in tensors]
 
 
 def log_pair_summary(cl: cluster.Clusters, log) -> None:
@@ -241,42 +262,32 @@ def run_two_datasets(cfg: Config, log=_log, device="cuda",
     """Mode 2 on ``device``: two eBWTs (``-1``, ``-2``) merged implicitly by
     the lockstep traversal. ``packed``, ``ckpt_dir`` and ``ckpt_every`` as
     in ``run_one_dataset``, over the merged n. Returns the JAX package's
-    stats (with ``da_values``) plus ``seconds``, the wall time of each
-    phase."""
+    stats (with ``da_values``) plus ``seconds``, the run's spans."""
     dev = device_mod.resolve(device)
     cfg = cfg.resolved()
-    seconds = {}
-    t0 = time.perf_counter()
     log("Phase 1/4: loading and indexing eBWTs ... ")
     # input 1 first: a bad input 1 is reported before input 2 (cpp:1750-1758)
-    with phase("index"):
-        fm1 = FMIndex.from_file(cfg.input1, cfg.term, dev)
-        fm2 = FMIndex.from_file(cfg.input2, cfg.term, dev)
-        device_mod.synchronize(dev)
-    t1 = time.perf_counter()
-    seconds["index"] = t1 - t0
-    log(f"done. [{t1 - t0:.2f}s]")
+    with span("index") as sp:
+        fm1 = _load_index(cfg.input1, cfg.term, dev)
+        fm2 = _load_index(cfg.input2, cfg.term, dev)
+    log(f"done. [{sp.seconds:.2f}s]")
 
     log("\nPhase 2-3/4: merged suffix-tree wavefront navigation.")
     res = traverse.navigate_two_bwts(fm1, fm2, cfg.K, cfg.k_right, packed,
                                      ckpt_dir=ckpt_dir,
                                      ckpt_every=ckpt_every)
-    t2 = time.perf_counter()
     st = res.stats
-    seconds["leaf_phase"] = st.pop("leaf_seconds")
-    seconds["node_phase"] = st.pop("node_seconds")
     n = fm1.n + fm2.n
     log(f"Computed {st['da_values']}/{n} DA values.")
     log(f"Computed {st['lcp_values']}/{n} LCP values.")
     log(f"Found {st['n_min']} LCP minima.")
     log(f"Processed {st['leaves']} suffix-tree leaves and {st['nodes']} "
-        f"nodes. [{t2 - t1:.2f}s]")
-    log(f"[timing] leaf phase {seconds['leaf_phase']:.2f}s, "
-        f"node phase {seconds['node_phase']:.2f}s\n")
+        f"nodes. [{spent('leaf_phase', 'node_phase'):.2f}s]")
+    _log_phases(log)
 
     log("Phase 4/4: detecting SNPs and indels.")
     log(f"Output events will be stored in {cfg.output}")
-    with phase("cluster"):
+    with span("cluster") as sp:
         next_thr, cl = _anchor_and_clusters(res, n, cfg.mcov_out)
         # the DA stays on the device as a rank structure (the reference
         # scans its vector<bool> DA, cpp:1431-1432); the packed route's DA
@@ -285,18 +296,15 @@ def run_two_datasets(cfg: Config, log=_log, device="cuda",
                  else bits.bv_build(res.da))
         del res
         device_mod.synchronize(dev)
-    t4 = time.perf_counter()
-    seconds["cluster"] = t4 - t2
-    log(f"[timing] cluster detect and DA rank build (device) {t4 - t2:.2f}s")
+    log(f"[timing] cluster detect and DA rank build (device) "
+        f"{sp.seconds:.2f}s")
 
-    with phase("call_emit"):
+    with span("call_emit") as sp:
         stats = _call_and_emit_pair_mode2(fm1, fm2, cl, next_thr, da_bv,
                                           cfg)
-    seconds["call_emit"] = time.perf_counter() - t4
-    log(f"[timing] call+emit {seconds['call_emit']:.2f}s")
+    log(f"[timing] call+emit {sp.seconds:.2f}s")
     stats.update(st)
     stats["n_clusters"] = cl.n_clusters
-    stats["seconds"] = seconds
     log_pair_summary(cl, log)
     return stats
 
@@ -330,46 +338,50 @@ def call_and_emit_pair_mode2(cl: cluster.Clusters, cfg: Config, dev, *,
     with open(cfg.output, "w") as out_f:
         if cl.n_clusters == 0:
             return {"events": 0, "cluster_nr": 1}
-        begins, ends = cl.begins, cl.ends
-        # each sample's sub-range of a merged range, by DA rank (the
-        # reference advances i0/i1 position by position, cpp:1431-1432)
-        b1 = da_rank1(begins)
-        e1 = da_rank1(ends)
-        b0 = begins - b1
-        e0 = ends - e1
-        quirk0, _ = range_counts[0](b0, e0)
-        quirk1, _ = range_counts[1](b1, e1)
-        passes = _pair_passes(quirk0, quirk1, cfg).cpu().numpy()
-        sel = np.flatnonzero(passes)
-        if len(sel) == 0:
-            return {"events": 0, "cluster_nr": 1}
+        with span("call_emit.walks"):
+            begins, ends = cl.begins, cl.ends
+            # each sample's sub-range of a merged range, by DA rank (the
+            # reference advances i0/i1 position by position,
+            # cpp:1431-1432)
+            with span("call_emit.da_rank", device=dev):
+                b1 = da_rank1(begins)
+                e1 = da_rank1(ends)
+            b0 = begins - b1
+            e0 = ends - e1
+            quirk0, _ = range_counts[0](b0, e0)
+            quirk1, _ = range_counts[1](b1, e1)
+            passes = _pair_passes(quirk0, quirk1, cfg).cpu().numpy()
+            sel = np.flatnonzero(passes)
+            if len(sel) == 0:
+                return {"events": 0, "cluster_nr": 1}
 
-        sel_d = torch.from_numpy(sel).to(dev)
-        ctx0, support0, full0 = consensus[0](b0[sel_d], e0[sel_d])
-        ctx1, support1, full1 = consensus[1](b1[sel_d], e1[sel_d])
-        # the right context comes from the index that holds the anchor
-        # position; each walk runs only on its own side's clusters
-        pos, found = anchor(begins[sel_d], ends[sel_d])
-        hit1 = da_rank1(pos)
-        da_at = da_get(pos) != 0
-        seq0, len0 = dna[0](pos - hit1, found & ~da_at)
-        seq1, len1 = dna[1](hit1, found & da_at)
-        seq = torch.where(da_at[:, None], seq1, seq0)
-        seqlen = torch.where(da_at, len1, len0)
+            sel_d = torch.from_numpy(sel).to(dev)
+            ctx0, support0, full0 = consensus[0](b0[sel_d], e0[sel_d])
+            ctx1, support1, full1 = consensus[1](b1[sel_d], e1[sel_d])
+            # the right context comes from the index that holds the anchor
+            # position; each walk runs only on its own side's clusters
+            pos, found = anchor(begins[sel_d], ends[sel_d])
+            with span("call_emit.da_rank", device=dev):
+                hit1 = da_rank1(pos)
+            da_at = da_get(pos) != 0
+            seq0, len0 = dna[0](pos - hit1, found & ~da_at)
+            seq1, len1 = dna[1](hit1, found & da_at)
+            seq = torch.where(da_at[:, None], seq1, seq0)
+            seqlen = torch.where(da_at, len1, len0)
+            (found, freq0, full0, freq1, full1, support0, support1, ctx0,
+             ctx1, seq, seqlen) = _to_host(
+                found, quirk0[sel_d] >= cfg.mcov_out, full0,
+                quirk1[sel_d] >= cfg.mcov_out, full1, support0, support1,
+                ctx0, ctx1, seq, seqlen)
 
         # every walked cluster passed _pair_passes, so the emission's own
         # both-covered test (pipeline.py:404-411) holds for all of them
-        return emit_vec.emit_pair(
-            out_f, cfg, found.cpu().numpy(),
-            (quirk0[sel_d] >= cfg.mcov_out).cpu().numpy(),
-            full0.cpu().numpy(),
-            (quirk1[sel_d] >= cfg.mcov_out).cpu().numpy(),
-            full1.cpu().numpy(),
-            support0.cpu().numpy(), support1.cpu().numpy(),
-            _decode_rows(ctx0.cpu().numpy(), cfg.term),
-            _decode_rows(ctx1.cpu().numpy(), cfg.term),
-            _decode_rows(seq.cpu().numpy(), cfg.term), seqlen.cpu().numpy(),
-        )
+        with span("call_emit.write"):
+            return emit_vec.emit_pair(
+                out_f, cfg, found, freq0, full0, freq1, full1, support0,
+                support1, _decode_rows(ctx0, cfg.term),
+                _decode_rows(ctx1, cfg.term), _decode_rows(seq, cfg.term),
+                seqlen)
 
 
 def mask_da0(raw: np.ndarray, da: np.ndarray, term: int) -> np.ndarray:
@@ -388,71 +400,64 @@ def run_two_datasets_da(cfg: Config, log=_log, device="cuda",
     """Mode 3 on ``device``: one merged eBWT (``-1``) and its document array
     (``-d``). The traversal is mode 1's, and so are ``packed``, ``ckpt_dir``
     and ``ckpt_every``. Returns the JAX package's stats plus ``seconds``,
-    the wall time of each phase."""
+    the run's spans."""
     dev = device_mod.resolve(device)
     cfg = cfg.resolved()
-    seconds = {}
-    t0 = time.perf_counter()
     log("Phase 1/4: loading and indexing eBWT ... ")
-    raw = np.fromfile(cfg.input1, dtype=np.uint8)
 
     def da_side():
-        da = packing.read_da_file(cfg.input_da, raw.size)
-        # the index of the DA = 1 side; each sample's counts come from two
-        # rank differences
-        fm_da1 = FMIndex.from_packed(
-            packing.pack_bytes(mask_da0(raw, da, cfg.term), cfg.term), dev)
-        return fm_da1, bits.from_numpy(*packing.pack_bitvector(da),
-                                       device=dev)
+        with span("index.da_side"):
+            da = packing.read_da_file(cfg.input_da, raw.size)
+            # the index of the DA = 1 side; each sample's counts come from
+            # two rank differences
+            fm_da1 = FMIndex.from_packed(
+                packing.pack_bytes(mask_da0(raw, da, cfg.term), cfg.term),
+                dev)
+            return fm_da1, bits.from_numpy(*packing.pack_bitvector(da),
+                                           device=dev)
 
     # the DA side does not feed the traversal: it is built in a worker
-    # thread behind phases 2-3 (pipeline.py:433-452)
+    # thread behind phases 2-3 (pipeline.py:433-452), in a copy of this
+    # context, so its span joins this run's record
     with ThreadPoolExecutor(1) as ex:
-        da_fut = ex.submit(da_side)
-        with phase("index"):
-            fm = FMIndex.from_packed(packing.pack_bytes(raw, cfg.term), dev)
-            device_mod.synchronize(dev)
-        t1 = time.perf_counter()
-        seconds["index"] = t1 - t0
-        log(f"done. [{t1 - t0:.2f}s]")
+        with span("index") as sp:
+            with span("index.pack"):
+                raw = np.fromfile(cfg.input1, dtype=np.uint8)
+                da_fut = ex.submit(contextvars.copy_context().run, da_side)
+                pb = packing.pack_bytes(raw, cfg.term)
+            with span("index.upload"):
+                fm = FMIndex.from_packed(pb, dev)
+                device_mod.synchronize(dev)
+        log(f"done. [{sp.seconds:.2f}s]")
 
         log("\nPhase 2-3/4: suffix-tree wavefront navigation.")
         res = traverse.navigate_one_bwt(fm, cfg.K, cfg.k_right, packed,
                                         ckpt_dir=ckpt_dir,
                                         ckpt_every=ckpt_every)
         st = res.stats
-        seconds["leaf_phase"] = st.pop("leaf_seconds")
-        seconds["node_phase"] = st.pop("node_seconds")
         log(f"Computed {st['lcp_values']}/{fm.n} LCP values.")
         log(f"Found {st['n_min']} LCP minima.")
-        log(f"[timing] leaf phase {seconds['leaf_phase']:.2f}s, "
-            f"node phase {seconds['node_phase']:.2f}s\n")
+        _log_phases(log)
 
         log("Phase 4/4: detecting SNPs and indels.")
         log(f"Output events will be stored in {cfg.output}")
-        t2 = time.perf_counter()
-        fm_da1, da_bv = da_fut.result()
-    device_mod.synchronize(dev)
-    t3 = time.perf_counter()
-    seconds["da_wait"] = t3 - t2
-    log(f"[timing] DA-side index wait {t3 - t2:.2f}s")
+        with span("da_wait") as sp:
+            fm_da1, da_bv = da_fut.result()
+            device_mod.synchronize(dev)
+    log(f"[timing] DA-side index wait {sp.seconds:.2f}s")
 
-    with phase("cluster"):
+    with span("cluster") as sp:
         next_thr, cl = _anchor_and_clusters(res, fm.n, cfg.mcov_out)
         del res
         device_mod.synchronize(dev)
-    t4 = time.perf_counter()
-    seconds["cluster"] = t4 - t3
-    log(f"[timing] cluster detect (device) {t4 - t3:.2f}s")
+    log(f"[timing] cluster detect (device) {sp.seconds:.2f}s")
 
-    with phase("call_emit"):
+    with span("call_emit") as sp:
         stats = _call_and_emit_pair_mode3(fm, fm_da1, cl, next_thr, da_bv,
                                           cfg)
-    seconds["call_emit"] = time.perf_counter() - t4
-    log(f"[timing] call+emit {seconds['call_emit']:.2f}s")
+    log(f"[timing] call+emit {sp.seconds:.2f}s")
     stats.update(st)
     stats["n_clusters"] = cl.n_clusters
-    stats["seconds"] = seconds
     log_pair_summary(cl, log)
     # the reference prints its never-incremented `events` counter here,
     # always 0 (ebwt2InDel.cpp:1577)
@@ -489,40 +494,41 @@ def call_and_emit_pair_mode3(cl: cluster.Clusters, cfg: Config, dev, *,
     with open(cfg.output, "w") as out_f:
         if cl.n_clusters == 0:
             return {"events": 0, "cluster_nr": 1}
-        begins, ends = cl.begins, cl.ends
-        # each sample's counts with the TERM->A quirk applied per side
-        # (find_variants with a DA, ebwt2InDel.cpp:1013-1030); the lengths
-        # come from the DA rank
-        _, pure_all = range_counts_all(begins, ends)
-        _, pure1 = range_counts_da1(begins, ends)
-        len1 = da_rank1(ends) - da_rank1(begins)
-        pure0 = pure_all - pure1
-        quirk1 = pure1.clone()
-        quirk1[:, 0] += len1 - pure1.sum(1)
-        quirk0 = pure0.clone()
-        quirk0[:, 0] += (ends - begins - len1) - pure0.sum(1)
-        passes = _pair_passes(quirk0, quirk1, cfg).cpu().numpy()
-        sel = np.flatnonzero(passes)
-        if len(sel) == 0:
-            return {"events": 0, "cluster_nr": 1}
+        with span("call_emit.walks"):
+            begins, ends = cl.begins, cl.ends
+            # each sample's counts with the TERM->A quirk applied per side
+            # (find_variants with a DA, ebwt2InDel.cpp:1013-1030); the
+            # lengths come from the DA rank
+            _, pure_all = range_counts_all(begins, ends)
+            _, pure1 = range_counts_da1(begins, ends)
+            with span("call_emit.da_rank", device=dev):
+                len1 = da_rank1(ends) - da_rank1(begins)
+            pure0 = pure_all - pure1
+            quirk1 = pure1.clone()
+            quirk1[:, 0] += len1 - pure1.sum(1)
+            quirk0 = pure0.clone()
+            quirk0[:, 0] += (ends - begins - len1) - pure0.sum(1)
+            passes = _pair_passes(quirk0, quirk1, cfg).cpu().numpy()
+            sel = np.flatnonzero(passes)
+            if len(sel) == 0:
+                return {"events": 0, "cluster_nr": 1}
 
-        # both samples' left contexts come from the merged index
-        # (cpp:1057-1058), so they share the consensus and its support
-        sel_d = torch.from_numpy(sel).to(dev)
-        sb = begins[sel_d]
-        se = ends[sel_d]
-        ctx, support, full = consensus(sb, se)
-        pos, found = anchor(sb, se)
-        seq, seqlen = dna(pos, found)
+            # both samples' left contexts come from the merged index
+            # (cpp:1057-1058), so they share the consensus and its support
+            sel_d = torch.from_numpy(sel).to(dev)
+            sb = begins[sel_d]
+            se = ends[sel_d]
+            ctx, support, full = consensus(sb, se)
+            pos, found = anchor(sb, se)
+            seq, seqlen = dna(pos, found)
+            ctx, support, full, found, freq0, freq1, seq, seqlen = _to_host(
+                ctx, support, full, found, quirk0[sel_d] >= cfg.mcov_out,
+                quirk1[sel_d] >= cfg.mcov_out, seq, seqlen)
 
-        ctx_ascii = _decode_rows(ctx.cpu().numpy(), cfg.term)
-        support = support.cpu().numpy()
-        full = full.cpu().numpy()
         # every walked cluster passed _pair_passes (see mode 2)
-        return emit_vec.emit_pair(
-            out_f, cfg, found.cpu().numpy(),
-            (quirk0[sel_d] >= cfg.mcov_out).cpu().numpy(), full,
-            (quirk1[sel_d] >= cfg.mcov_out).cpu().numpy(), full,
-            support, support, ctx_ascii, ctx_ascii,
-            _decode_rows(seq.cpu().numpy(), cfg.term), seqlen.cpu().numpy(),
-        )
+        with span("call_emit.write"):
+            ctx_ascii = _decode_rows(ctx, cfg.term)
+            return emit_vec.emit_pair(
+                out_f, cfg, found, freq0, full, freq1, full, support,
+                support, ctx_ascii, ctx_ascii, _decode_rows(seq, cfg.term),
+                seqlen)

@@ -56,17 +56,22 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
-import time
 
 import torch
 
 from ..device import synchronize
 from ..ops import bits
-from ..utils.profile import phase
+from ..utils.profile import span
 from . import fm_index as fm_ops
 from .fm_index import FMIndex
 
 CHUNK = 256 * 1024  # rows popped per step (traverse.py:39)
+# The span of a node step's waits on the device: each of its two boolean-
+# mask indexes (the flags' positions, the kept children) copies its count
+# to the host, so the host waits there for all the step's work queued
+# before it. The span holds that index alone; a synchronise of its own
+# before it would add an idle round trip to the card per wait.
+WAIT = "node_phase.wait"
 
 # The route switch (the JAX package's _LEAN_N = 2**27, traverse.py:1221, was
 # sized for a 16 GB TPU). On an 80 GB H100 the dense route peaked at 35.75 B
@@ -181,11 +186,15 @@ def _node_body(fm: FMIndex, chunk, flags, stats, K: int, k_right: int):
     # whole traversal, so the add never collides (traverse.py:432-436)
     border = chunk[:, 1:5]
     on = v > 0
-    add_at(flags, border[on], v[on])
+    with span(WAIT):
+        at = border[on]
+    add_at(flags, at, v[on])
     stats[0] += chunk.shape[0]
 
     ext = fm_ops.extend_node(fm, chunk)  # (C, 4, 7)
-    return _char_major(ext, fm_ops.node_num_children(ext) >= 2)
+    keep = fm_ops.node_num_children(ext) >= 2
+    with span(WAIT):
+        return _char_major(ext, keep)
 
 
 def _leaf_pair_body(fm1: FMIndex, fm2: FMIndex, chunk, difs, stats, K: int,
@@ -240,23 +249,36 @@ def _node_pair_body(fm1: FMIndex, fm2: FMIndex, chunk, flags, stats, K: int,
     flags (cpp:792-802), and the pairwise Weiner extension keeping pairs
     with >= 2 union children (cpp:529-553). chunk: (C, 13) = the 6
     boundaries in each index, then the depth."""
-    pos, v = node_pair_flags(chunk, stats, K, k_right)
+    pos, v = node_pair_values(chunk, stats, K, k_right)
+    on = v > 0
+    with span(WAIT):
+        at = pos[on]
     # a singleton position gets its DA bit from exactly one node pair, and
     # the LCP bits are written once each as in mode 1 (traverse.py:647-649),
     # so the bits add without carries
-    add_at(flags, pos, v)
+    add_at(flags, at, v[on])
     ext1 = fm_ops.extend_coords(fm1, chunk[:, 0:6])  # (C, 4, 6)
     ext2 = fm_ops.extend_coords(fm2, chunk[:, 6:12])
-    return node_pair_children(ext1, ext2, chunk)
+    children, keep = node_pair_rows(ext1, ext2, chunk)
+    with span(WAIT):
+        return _char_major(children, keep)
 
 
 def node_pair_flags(chunk, stats, K: int, k_right: int):
     """The nonzero flag values of node-pair rows (C, 13) and their merged
-    positions: the merged node's boundaries are the sums of the two sides'
-    (include.hpp:476-490). A child interval of one merged position is a
-    leaf (find_leaves); it counts as a DA value, and DA = 1 (bit 8) when it
-    comes from collection 2. Adds the nodes, LCP, minima and DA counts to
-    stats[0:4]."""
+    positions (``node_pair_values`` where nonzero)."""
+    pos, v = node_pair_values(chunk, stats, K, k_right)
+    on = v > 0
+    return pos[on], v[on]
+
+
+def node_pair_values(chunk, stats, K: int, k_right: int):
+    """The flag values (C, 5) of node-pair rows (C, 13) at their merged
+    positions (C, 5): the merged node's boundaries are the sums of the two
+    sides' (include.hpp:476-490). A child interval of one merged position
+    is a leaf (find_leaves); it counts as a DA value, and DA = 1 (bit 8)
+    when it comes from collection 2. Adds the nodes, LCP, minima and DA
+    counts to stats[0:4]."""
     c1 = chunk[:, 0:6]
     c2 = chunk[:, 6:12]
     merged = c1 + c2
@@ -267,19 +289,24 @@ def node_pair_flags(chunk, stats, K: int, k_right: int):
     v[:, 1:] += _border_values(merged, chunk[:, 12:13], stats, K, k_right)
     stats[0] += chunk.shape[0]
     stats[3] += single.sum()
-    on = v > 0
-    return merged[:, 0:5][on], v[on]
+    return merged[:, 0:5], v
 
 
 def node_pair_children(ext1, ext2, chunk):
     """The Weiner extensions (C, 4, 13) of node-pair rows from each side's
     extended boundaries (C, 4, 6), kept where the pair has >= 2 union
-    children."""
+    children (``node_pair_rows``)."""
+    return _char_major(*node_pair_rows(ext1, ext2, chunk))
+
+
+def node_pair_rows(ext1, ext2, chunk):
+    """All Weiner extensions (C, 4, 13) of node-pair rows and whether each
+    is kept (C, 4): the pair has >= 2 union children."""
     union = (ext1[..., 1:] > ext1[..., :-1]) | (ext2[..., 1:] > ext2[..., :-1])
     children = torch.cat(
         [ext1, ext2, (chunk[:, 12:13] + 1)[:, None, :].expand(-1, 4, 1)],
         dim=-1)
-    return _char_major(children, union.sum(-1) >= 2)
+    return children, union.sum(-1) >= 2
 
 
 @dataclasses.dataclass
@@ -481,13 +508,14 @@ def navigate_one_bwt(fm: FMIndex, K: int, k_right: int,
     ``packed=None`` takes the bit-packed route from ``LEAN_N`` positions on;
     True or False forces a route. With ``ckpt_dir`` each phase resumes from
     and saves to a checkpoint there (every ``ckpt_every`` chunks; see the
-    module's docstring). ``stats`` carries the counts of the JAX package
-    plus the seconds of each phase (``leaf_seconds``, ``node_seconds``)."""
+    module's docstring). ``stats`` carries the counts of the JAX package;
+    each phase is a span (``leaf_phase``, ``node_phase``, each ended by a
+    synchronise), the node steps' waits on the device ``node_phase.wait``.
+    """
     n, dev = fm.n, fm.device
     if packed is None:
         packed = n >= LEAN_N
-    t0 = time.perf_counter()
-    with phase("leaf_phase"):
+    with span("leaf_phase"):
         difs = [torch.zeros(n + 1, dtype=torch.int32, device=dev)
                 for _ in range(2)]  # K, R
         st_l = torch.zeros(2, dtype=torch.int64, device=dev)  # leaves, lcp
@@ -499,9 +527,8 @@ def navigate_one_bwt(fm: FMIndex, K: int, k_right: int,
         fills = (_fills_packed(difs, n, slice_len) if packed
                  else _fills_dense(difs, n))
         synchronize(dev)
-    t1 = time.perf_counter()
 
-    with phase("node_phase"):
+    with span("node_phase"):
         flags = torch.zeros(n, dtype=torch.uint8, device=dev)
         # nodes, lcp, n_min
         st_n = torch.zeros(3, dtype=torch.int64, device=dev)
@@ -514,13 +541,11 @@ def navigate_one_bwt(fm: FMIndex, K: int, k_right: int,
                                 if packed else _combine_dense(flags, fills))
         del flags, fills
         synchronize(dev)
-    t2 = time.perf_counter()
 
     l, n_ = st_l.tolist(), st_n.tolist()
     stats = {
         "leaves": l[0], "nodes": n_[0], "lcp_values": 1 + l[1] + n_[1],
         "n_min": n_[2], "max_pending": max(maxp_l, maxp_n),
-        "leaf_seconds": t1 - t0, "node_seconds": t2 - t1,
     }
     return TraversalResult(thr_K=thr_K, thr_R=thr_R, minima=minima,
                            stats=stats, packed=packed)
@@ -541,8 +566,7 @@ def navigate_two_bwts(fm1: FMIndex, fm2: FMIndex, K: int, k_right: int,
     if packed is None:
         packed = n >= LEAN_N
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
-    t0 = time.perf_counter()
-    with phase("leaf_phase"):
+    with span("leaf_phase"):
         difs = [torch.zeros(n + 1, dtype=torch.int32, device=dev)
                 for _ in range(3)]  # K, R, DA
         # leaves, lcp, da
@@ -558,9 +582,8 @@ def navigate_two_bwts(fm1: FMIndex, fm2: FMIndex, K: int, k_right: int,
         fills = (_fills_packed(difs, n, slice_len) if packed
                  else _fills_dense(difs, n))
         synchronize(dev)
-    t1 = time.perf_counter()
 
-    with phase("node_phase"):
+    with span("node_phase"):
         flags = torch.zeros(n, dtype=torch.uint8, device=dev)
         # nodes, lcp, n_min, da
         st_n = torch.zeros(4, dtype=torch.int64, device=dev)
@@ -576,14 +599,12 @@ def navigate_two_bwts(fm1: FMIndex, fm2: FMIndex, K: int, k_right: int,
             else _combine_dense(flags, fills))
         del flags, fills
         synchronize(dev)
-    t2 = time.perf_counter()
 
     l, n_ = st_l.tolist(), st_n.tolist()
     stats = {
         "leaves": l[0], "nodes": n_[0], "lcp_values": 1 + l[1] + n_[1],
         "n_min": n_[2], "da_values": l[2] + n_[3],
         "max_pending": max(maxp_l, maxp_n),
-        "leaf_seconds": t1 - t0, "node_seconds": t2 - t1,
     }
     return TraversalResult(thr_K=thr_K, thr_R=thr_R, minima=minima,
                            stats=stats, da=da, packed=packed)

@@ -61,7 +61,6 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 
 import numpy as np
 import torch
@@ -69,6 +68,7 @@ import torch
 from ..models import fm_index as fm_ops
 from ..models import traverse
 from ..ops import rank
+from ..utils.profile import span
 from . import shard as shard_ops
 from .shard import ShardedFM
 
@@ -385,53 +385,52 @@ def navigate_one_bwt_sharded(sfm: ShardedFM, K: int, k_right: int,
     phase. Returns (thr_K, thr_R, minima, stats): each flag a dict of the
     local shards' (local_n,) uint8 vectors over the shard's positions (0
     past n), and ``stats`` the counts of ``traverse.navigate_one_bwt``
-    (``leaves``, ``nodes``, ``lcp_values``, ``n_min``) plus the mesh steps
-    and the seconds of each phase. With ``ckpt_dir`` each phase resumes
+    (``leaves``, ``nodes``, ``lcp_values``, ``n_min``) plus the mesh
+    steps; each phase is a span (``leaf_phase``, ``node_phase``, each ended
+    by a synchronise). With ``ckpt_dir`` each phase resumes
     from and saves to checkpoints there (every ``ckpt_every`` mesh steps;
     see the module's docstring)."""
     mesh, L = sfm.mesh, sfm.local_n
     dev = mesh.devices
     meta = {"n": sfm.n, "K": K, "k_right": k_right, "local_n": L,
             "rows": sfm.rows}
-    t0 = time.perf_counter()
-    difs = {s: [torch.zeros(L, dtype=torch.int32, device=dev[s])
-                for _ in range(2)] for s in mesh.local}
-    st_l = {s: torch.zeros(2, dtype=torch.int64, device=dev[s])
-            for s in mesh.local}
-    F = sfm.F.tolist()
-    leaf_steps = _drive(
-        sfm, 3, torch.tensor([[0, F[0], 0]]),
-        lambda c: _leaf_step(sfm, c, difs, st_l, K, k_right),
-        _checkpoint(mesh, ckpt_dir, ckpt_every, "m1leaf",
-                    {s: [*difs[s], st_l[s]] for s in mesh.local},
-                    width=3, **meta))
-    fills = _fills(sfm, difs)
-    mesh.synchronize()
-    t1 = time.perf_counter()
+    with span("leaf_phase"):
+        difs = {s: [torch.zeros(L, dtype=torch.int32, device=dev[s])
+                    for _ in range(2)] for s in mesh.local}
+        st_l = {s: torch.zeros(2, dtype=torch.int64, device=dev[s])
+                for s in mesh.local}
+        F = sfm.F.tolist()
+        leaf_steps = _drive(
+            sfm, 3, torch.tensor([[0, F[0], 0]]),
+            lambda c: _leaf_step(sfm, c, difs, st_l, K, k_right),
+            _checkpoint(mesh, ckpt_dir, ckpt_every, "m1leaf",
+                        {s: [*difs[s], st_l[s]] for s in mesh.local},
+                        width=3, **meta))
+        fills = _fills(sfm, difs)
+        mesh.synchronize()
 
-    flags = {s: torch.zeros(L, dtype=torch.uint8, device=dev[s])
-             for s in mesh.local}
-    st_n = {s: torch.zeros(3, dtype=torch.int64, device=dev[s])
-            for s in mesh.local}
-    node_steps = _drive(
-        sfm, 7, torch.tensor([[0, *F, sfm.n, 0]]),
-        lambda c: _node_step(sfm, c, flags, st_n, K, k_right),
-        _checkpoint(mesh, ckpt_dir, ckpt_every, "m1node",
-                    {s: [flags[s], st_n[s]] for s in mesh.local},
-                    width=7, **meta))
-    thr_K, thr_R, minima = {}, {}, {}
-    for s in mesh.local:
-        thr_K[s], thr_R[s], minima[s] = traverse._combine_dense(
-            flags.pop(s), fills.pop(s))
-    mesh.synchronize()
-    t2 = time.perf_counter()
+    with span("node_phase"):
+        flags = {s: torch.zeros(L, dtype=torch.uint8, device=dev[s])
+                 for s in mesh.local}
+        st_n = {s: torch.zeros(3, dtype=torch.int64, device=dev[s])
+                for s in mesh.local}
+        node_steps = _drive(
+            sfm, 7, torch.tensor([[0, *F, sfm.n, 0]]),
+            lambda c: _node_step(sfm, c, flags, st_n, K, k_right),
+            _checkpoint(mesh, ckpt_dir, ckpt_every, "m1node",
+                        {s: [flags[s], st_n[s]] for s in mesh.local},
+                        width=7, **meta))
+        thr_K, thr_R, minima = {}, {}, {}
+        for s in mesh.local:
+            thr_K[s], thr_R[s], minima[s] = traverse._combine_dense(
+                flags.pop(s), fills.pop(s))
+        mesh.synchronize()
 
     l = mesh.psum(st_l).tolist()
     n_ = mesh.psum(st_n).tolist()
     stats = {"leaves": l[0], "nodes": n_[0], "lcp_values": 1 + l[1] + n_[1],
              "n_min": n_[2], "leaf_steps": leaf_steps,
-             "node_steps": node_steps, "leaf_seconds": t1 - t0,
-             "node_seconds": t2 - t1}
+             "node_steps": node_steps}
     return thr_K, thr_R, minima, stats
 
 
@@ -571,7 +570,7 @@ def navigate_two_bwts_sharded(sfm1: ShardedFM, sfm2: ShardedFM, K: int,
     counts of ``traverse.navigate_two_bwts`` (``da_values`` among them) plus
     the mesh steps, ``comm_bytes_per_step`` (the bytes of the rows that the
     ``all_to_all``s send to another shard, over the mesh, per step; the
-    wide rows' gathers are not in it) and the seconds of each phase.
+    wide rows' gathers are not in it); its phases are spans as there.
     ``ckpt_dir`` and ``ckpt_every`` act as in ``navigate_one_bwt_sharded``;
     a resumed phase restores its routed bytes, so ``comm_bytes_per_step``
     is the uninterrupted run's."""
@@ -584,39 +583,39 @@ def navigate_two_bwts_sharded(sfm1: ShardedFM, sfm2: ShardedFM, K: int,
     meta = {"n1": n1, "n2": n2, "Lm": Lm, "K": K, "k_right": k_right,
             "rows": [sfm1.rows, sfm2.rows]}
     routed = mesh.routed_bytes
-    t0 = time.perf_counter()
-    difs = {s: [torch.zeros(Lm, dtype=torch.int32, device=dev[s])
-                for _ in range(3)] for s in mesh.local}  # K, R, DA
-    st_l = {s: torch.zeros(3, dtype=torch.int64, device=dev[s])
-            for s in mesh.local}  # leaves, lcp, da
-    F1, F2 = sfm1.F.tolist(), sfm2.F.tolist()
-    leaf_steps = _drive(
-        sfm1, 5, torch.tensor([[0, F1[0], 0, F2[0], 0]]),
-        lambda c: _leaf_pair_step(sfm1, sfm2, Lm, c, difs, st_l, K, k_right),
-        _checkpoint(mesh, ckpt_dir, ckpt_every, "pleaf",
-                    {s: [*difs[s], st_l[s]] for s in mesh.local},
-                    width=5, **meta))
-    fills = _fills(sfm1, difs)
-    mesh.synchronize()
-    t1 = time.perf_counter()
+    with span("leaf_phase"):
+        difs = {s: [torch.zeros(Lm, dtype=torch.int32, device=dev[s])
+                    for _ in range(3)] for s in mesh.local}  # K, R, DA
+        st_l = {s: torch.zeros(3, dtype=torch.int64, device=dev[s])
+                for s in mesh.local}  # leaves, lcp, da
+        F1, F2 = sfm1.F.tolist(), sfm2.F.tolist()
+        leaf_steps = _drive(
+            sfm1, 5, torch.tensor([[0, F1[0], 0, F2[0], 0]]),
+            lambda c: _leaf_pair_step(sfm1, sfm2, Lm, c, difs, st_l, K,
+                                      k_right),
+            _checkpoint(mesh, ckpt_dir, ckpt_every, "pleaf",
+                        {s: [*difs[s], st_l[s]] for s in mesh.local},
+                        width=5, **meta))
+        fills = _fills(sfm1, difs)
+        mesh.synchronize()
 
-    flags = {s: torch.zeros(Lm, dtype=torch.uint8, device=dev[s])
-             for s in mesh.local}
-    st_n = {s: torch.zeros(4, dtype=torch.int64, device=dev[s])
-            for s in mesh.local}  # nodes, lcp, n_min, da
-    node_steps = _drive(
-        sfm1, 13, torch.tensor([[0, *F1, n1, 0, *F2, n2, 0]]),
-        lambda c: _node_pair_step(sfm1, sfm2, Lm, c, flags, st_n, K,
-                                  k_right),
-        _checkpoint(mesh, ckpt_dir, ckpt_every, "pnode",
-                    {s: [flags[s], st_n[s]] for s in mesh.local},
-                    width=13, **meta))
-    thr_K, thr_R, minima, da = {}, {}, {}, {}
-    for s in mesh.local:
-        thr_K[s], thr_R[s], minima[s], da[s] = traverse._combine_dense(
-            flags.pop(s), fills.pop(s))
-    mesh.synchronize()
-    t2 = time.perf_counter()
+    with span("node_phase"):
+        flags = {s: torch.zeros(Lm, dtype=torch.uint8, device=dev[s])
+                 for s in mesh.local}
+        st_n = {s: torch.zeros(4, dtype=torch.int64, device=dev[s])
+                for s in mesh.local}  # nodes, lcp, n_min, da
+        node_steps = _drive(
+            sfm1, 13, torch.tensor([[0, *F1, n1, 0, *F2, n2, 0]]),
+            lambda c: _node_pair_step(sfm1, sfm2, Lm, c, flags, st_n, K,
+                                      k_right),
+            _checkpoint(mesh, ckpt_dir, ckpt_every, "pnode",
+                        {s: [flags[s], st_n[s]] for s in mesh.local},
+                        width=13, **meta))
+        thr_K, thr_R, minima, da = {}, {}, {}, {}
+        for s in mesh.local:
+            thr_K[s], thr_R[s], minima[s], da[s] = traverse._combine_dense(
+                flags.pop(s), fills.pop(s))
+        mesh.synchronize()
 
     l = mesh.psum(st_l).tolist()
     n_ = mesh.psum(st_n).tolist()
@@ -625,6 +624,5 @@ def navigate_two_bwts_sharded(sfm1: ShardedFM, sfm2: ShardedFM, K: int,
              "n_min": n_[2], "da_values": l[2] + n_[3],
              "leaf_steps": leaf_steps, "node_steps": node_steps,
              "comm_bytes_per_step":
-                 mesh.psum_int(mesh.routed_bytes - routed) // max(steps, 1),
-             "leaf_seconds": t1 - t0, "node_seconds": t2 - t1}
+                 mesh.psum_int(mesh.routed_bytes - routed) // max(steps, 1)}
     return thr_K, thr_R, minima, da, stats

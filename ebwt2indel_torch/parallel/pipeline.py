@@ -21,7 +21,6 @@ thread (mode 3: behind the traversal, as on one device).
 from __future__ import annotations
 
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
@@ -30,10 +29,12 @@ import torch
 
 from ..models import pipeline as mpipe
 from ..utils.config import Config
+from ..utils.profile import recorded, span, spent
 from . import calling, frontier, shard
 from .mesh import Mesh
 
 
+@recorded
 def run_one_dataset_sharded(cfg: Config, mesh: Mesh, log=mpipe._log,
                             ckpt_dir=None, ckpt_every: int = 0) -> dict:
     """Mode 1 over ``mesh``. ``ckpt_dir`` and ``ckpt_every`` give the
@@ -42,15 +43,13 @@ def run_one_dataset_sharded(cfg: Config, mesh: Mesh, log=mpipe._log,
     (its ``seconds`` too, each phase ended by a device synchronise) plus
     the traversal's mesh steps."""
     cfg = cfg.resolved()
-    seconds = {}
-    t0 = time.perf_counter()
     log("Phase 1/4: loading and indexing eBWT ... ")
-    # the sharded loader: this process packs only its shards' byte ranges
-    sfm = shard.shard_fm_from_file(cfg.input1, mesh, cfg.term)
-    mesh.synchronize()
-    t1 = time.perf_counter()
-    seconds["index"] = t1 - t0
-    log(f"done. [{t1 - t0:.2f}s]")
+    with span("index") as sp:
+        # the sharded loader: this process packs only its shards' byte
+        # ranges
+        sfm = shard.shard_fm_from_file(cfg.input1, mesh, cfg.term)
+        mesh.synchronize()
+    log(f"done. [{sp.seconds:.2f}s]")
     log(f"[loader] process {mesh.proc} packed {sfm.local_bytes}/{sfm.n} "
         "input bytes")
 
@@ -58,40 +57,41 @@ def run_one_dataset_sharded(cfg: Config, mesh: Mesh, log=mpipe._log,
         f"({mesh.size}-device mesh).")
     thr_K, thr_R, minima, st = frontier.navigate_one_bwt_sharded(
         sfm, cfg.K, cfg.k_right, ckpt_dir, ckpt_every)
-    t2 = time.perf_counter()
-    seconds["leaf_phase"] = st.pop("leaf_seconds")
-    seconds["node_phase"] = st.pop("node_seconds")
     log(f"Computed {st['lcp_values']}/{sfm.n} LCP values.")
     log(f"Found {st['n_min']} LCP minima.")
     log(f"Processed {st['leaves']} suffix-tree leaves and {st['nodes']} "
-        f"nodes. [{t2 - t1:.2f}s]")
-    log(f"[timing] leaf phase {seconds['leaf_phase']:.2f}s, "
-        f"node phase {seconds['node_phase']:.2f}s "
-        f"({st['leaf_steps']} and {st['node_steps']} mesh steps)\n")
+        f"nodes. [{spent('leaf_phase', 'node_phase'):.2f}s]")
+    mpipe._log_phases(log, _steps(st))
 
     log("Phase 4/4: detecting SNPs and indels.")
     log(f"Output events will be stored in {cfg.output}")
     L = sfm.local_n
-    next_thr = calling.next_set_table_sharded(mesh, thr_R, local_n=L,
-                                              n=sfm.n)
-    del thr_R
-    cl = calling.find_clusters_sharded(mesh, thr_K, minima, local_n=L,
-                                       n=sfm.n, mcov_out=cfg.mcov_out)
-    del thr_K, minima
-    mesh.synchronize()
-    t4 = time.perf_counter()
-    seconds["cluster"] = t4 - t2
-    log(f"[timing] cluster detect (sharded) {t4 - t2:.2f}s")
+    with span("cluster") as sp:
+        next_thr = calling.next_set_table_sharded(mesh, thr_R, local_n=L,
+                                                  n=sfm.n)
+        del thr_R
+        cl = calling.find_clusters_sharded(mesh, thr_K, minima, local_n=L,
+                                           n=sfm.n, mcov_out=cfg.mcov_out)
+        del thr_K, minima
+        mesh.synchronize()
+    log(f"[timing] cluster detect (sharded) {sp.seconds:.2f}s")
 
-    stats = _call_and_emit_single_sharded(sfm, cl, next_thr, cfg)
-    seconds["call_emit"] = time.perf_counter() - t4
-    log(f"[timing] call+emit {seconds['call_emit']:.2f}s")
+    with span("call_emit") as sp:
+        stats = _call_and_emit_single_sharded(sfm, cl, next_thr, cfg)
+    log(f"[timing] call+emit {sp.seconds:.2f}s")
     stats.update(st)
     stats["n_clusters"] = cl.n_clusters
-    stats["seconds"] = seconds
 
     mpipe.log_single_summary(cl, stats, log)
     return stats
+
+
+def _steps(st: dict) -> str:
+    """The mesh steps (and routed bytes) of the timing line."""
+    routed = (f", {st['comm_bytes_per_step']} routed bytes per step"
+              if "comm_bytes_per_step" in st else "")
+    return (f" ({st['leaf_steps']} and {st['node_steps']} mesh steps"
+            f"{routed})")
 
 
 def _call_and_emit_single_sharded(sfm: shard.ShardedFM, cl, next_thr: dict,
@@ -134,6 +134,7 @@ def load_da_side(mesh: Mesh, raw: np.ndarray, da: np.ndarray, term: int):
     return sfm_da1, calling.bv_build_sharded(mesh, parts, local_n=L)
 
 
+@recorded
 def run_two_datasets_da_sharded(cfg: Config, mesh: Mesh,
                                 log=mpipe._log, ckpt_dir=None,
                                 ckpt_every: int = 0) -> dict:
@@ -144,77 +145,68 @@ def run_two_datasets_da_sharded(cfg: Config, mesh: Mesh,
     Returns the stats of ``models.pipeline.run_two_datasets_da`` (its
     ``seconds`` with ``da_wait`` too) plus the traversal's mesh steps."""
     cfg = cfg.resolved()
-    seconds = {}
-    t0 = time.perf_counter()
     log("Phase 1/4: loading and indexing eBWT ... ")
-    n = os.path.getsize(cfg.input1)
-    raw = np.memmap(cfg.input1, dtype=np.uint8, mode="r") if n else \
-        np.zeros(0, np.uint8)
-    da = np.memmap(cfg.input_da, dtype=np.uint8, mode="r") if n else \
-        np.zeros(0, np.uint8)
-    args = (mesh, raw, da, cfg.term)
     with ThreadPoolExecutor(1) as ex:
-        # one process: the DA side does not feed the traversal, so it is
-        # built in a worker thread behind phases 2-3
-        da_fut = ex.submit(load_da_side, *args) if mesh.nprocs == 1 \
-            else None
-        sfm = shard.shard_fm_from_file(cfg.input1, mesh, cfg.term)
-        side = load_da_side(*args) if da_fut is None else None
-        mesh.synchronize()
-        t1 = time.perf_counter()
-        seconds["index"] = t1 - t0
-        log(f"done. [{t1 - t0:.2f}s]")
+        with span("index") as sp:
+            n = os.path.getsize(cfg.input1)
+            raw = np.memmap(cfg.input1, dtype=np.uint8, mode="r") if n \
+                else np.zeros(0, np.uint8)
+            da = np.memmap(cfg.input_da, dtype=np.uint8, mode="r") if n \
+                else np.zeros(0, np.uint8)
+            args = (mesh, raw, da, cfg.term)
+            # one process: the DA side does not feed the traversal, so it
+            # is built in a worker thread behind phases 2-3
+            da_fut = ex.submit(load_da_side, *args) if mesh.nprocs == 1 \
+                else None
+            sfm = shard.shard_fm_from_file(cfg.input1, mesh, cfg.term)
+            side = load_da_side(*args) if da_fut is None else None
+            mesh.synchronize()
+        log(f"done. [{sp.seconds:.2f}s]")
         _log_loader(sfm, log)
 
         log(f"\nPhase 2-3/4: suffix-tree wavefront navigation "
             f"({mesh.size}-device mesh).")
         thr_K, thr_R, minima, st = frontier.navigate_one_bwt_sharded(
             sfm, cfg.K, cfg.k_right, ckpt_dir, ckpt_every)
-        seconds["leaf_phase"] = st.pop("leaf_seconds")
-        seconds["node_phase"] = st.pop("node_seconds")
         log(f"Computed {st['lcp_values']}/{sfm.n} LCP values.")
         log(f"Found {st['n_min']} LCP minima.")
-        log(f"[timing] leaf phase {seconds['leaf_phase']:.2f}s, "
-            f"node phase {seconds['node_phase']:.2f}s "
-            f"({st['leaf_steps']} and {st['node_steps']} mesh steps)\n")
+        mpipe._log_phases(log, _steps(st))
 
         log("Phase 4/4: detecting SNPs and indels.")
         log(f"Output events will be stored in {cfg.output}")
-        t2 = time.perf_counter()
-        sfm_da1, da_bv = side or da_fut.result()
-    mesh.synchronize()
-    t3 = time.perf_counter()
-    seconds["da_wait"] = t3 - t2
-    log(f"[timing] DA-side index wait {t3 - t2:.2f}s")
+        with span("da_wait") as sp:
+            sfm_da1, da_bv = side or da_fut.result()
+            mesh.synchronize()
+    log(f"[timing] DA-side index wait {sp.seconds:.2f}s")
 
     L = sfm.local_n
-    next_thr = calling.next_set_table_sharded(mesh, thr_R, local_n=L, n=n)
-    del thr_R
-    cl = calling.find_clusters_sharded(mesh, thr_K, minima, local_n=L, n=n,
-                                       mcov_out=cfg.mcov_out)
-    del thr_K, minima
-    mesh.synchronize()
-    t4 = time.perf_counter()
-    seconds["cluster"] = t4 - t3
-    log(f"[timing] cluster detect (sharded) {t4 - t3:.2f}s")
+    with span("cluster") as sp:
+        next_thr = calling.next_set_table_sharded(mesh, thr_R, local_n=L,
+                                                  n=n)
+        del thr_R
+        cl = calling.find_clusters_sharded(mesh, thr_K, minima, local_n=L,
+                                           n=n, mcov_out=cfg.mcov_out)
+        del thr_K, minima
+        mesh.synchronize()
+    log(f"[timing] cluster detect (sharded) {sp.seconds:.2f}s")
 
-    stats = mpipe.call_and_emit_pair_mode3(
-        cl, cfg, mesh.device,
-        range_counts_all=lambda b, e: calling.range_counts_sharded(sfm, b, e),
-        range_counts_da1=lambda b, e: calling.range_counts_sharded(
-            sfm_da1, b, e),
-        da_rank1=lambda i: calling.bv_rank1_sharded(da_bv, i),
-        consensus=lambda b, e: calling.extract_consensus_sharded(
-            sfm, b, e, k_left=cfg.k_left),
-        anchor=lambda b, e: calling.first_thr_position_sharded(
-            mesh, next_thr, b, e, local_n=L),
-        dna=lambda p, f: calling.extract_dna_sharded(sfm, p, f,
-                                                     k_right=cfg.k_right))
-    seconds["call_emit"] = time.perf_counter() - t4
-    log(f"[timing] call+emit {seconds['call_emit']:.2f}s")
+    with span("call_emit") as sp:
+        stats = mpipe.call_and_emit_pair_mode3(
+            cl, cfg, mesh.device,
+            range_counts_all=lambda b, e: calling.range_counts_sharded(
+                sfm, b, e),
+            range_counts_da1=lambda b, e: calling.range_counts_sharded(
+                sfm_da1, b, e),
+            da_rank1=lambda i: calling.bv_rank1_sharded(da_bv, i),
+            consensus=lambda b, e: calling.extract_consensus_sharded(
+                sfm, b, e, k_left=cfg.k_left),
+            anchor=lambda b, e: calling.first_thr_position_sharded(
+                mesh, next_thr, b, e, local_n=L),
+            dna=lambda p, f: calling.extract_dna_sharded(
+                sfm, p, f, k_right=cfg.k_right))
+    log(f"[timing] call+emit {sp.seconds:.2f}s")
     stats.update(st)
     stats["n_clusters"] = cl.n_clusters
-    stats["seconds"] = seconds
     mpipe.log_pair_summary(cl, log)
     # the reference prints its never-incremented `events` counter here,
     # always 0 (ebwt2InDel.cpp:1577)
@@ -223,6 +215,7 @@ def run_two_datasets_da_sharded(cfg: Config, mesh: Mesh,
     return stats
 
 
+@recorded
 def run_two_datasets_sharded(cfg: Config, mesh: Mesh, log=mpipe._log,
                              ckpt_dir=None, ckpt_every: int = 0) -> dict:
     """Mode 2 over ``mesh``: two indexes (``-1``, ``-2``), each in its own
@@ -234,25 +227,22 @@ def run_two_datasets_sharded(cfg: Config, mesh: Mesh, log=mpipe._log,
     ``models.pipeline.run_two_datasets`` plus the mesh steps and
     ``comm_bytes_per_step``."""
     cfg = cfg.resolved()
-    seconds = {}
-    t0 = time.perf_counter()
     log("Phase 1/4: loading and indexing eBWTs ... ")
-    shard._check_mesh_cap(os.path.getsize(cfg.input1)
-                          + os.path.getsize(cfg.input2))
-    # input 1 first: a bad input 1 is reported before input 2
-    if mesh.nprocs > 1:
-        sfm1 = shard.shard_fm_from_file(cfg.input1, mesh, cfg.term)
-        sfm2 = shard.shard_fm_from_file(cfg.input2, mesh, cfg.term)
-    else:
-        with ThreadPoolExecutor(1) as ex:
-            f2 = ex.submit(shard.shard_fm_from_file, cfg.input2, mesh,
-                           cfg.term)
+    with span("index") as sp:
+        shard._check_mesh_cap(os.path.getsize(cfg.input1)
+                              + os.path.getsize(cfg.input2))
+        # input 1 first: a bad input 1 is reported before input 2
+        if mesh.nprocs > 1:
             sfm1 = shard.shard_fm_from_file(cfg.input1, mesh, cfg.term)
-            sfm2 = f2.result()
-    mesh.synchronize()
-    t1 = time.perf_counter()
-    seconds["index"] = t1 - t0
-    log(f"done. [{t1 - t0:.2f}s]")
+            sfm2 = shard.shard_fm_from_file(cfg.input2, mesh, cfg.term)
+        else:
+            with ThreadPoolExecutor(1) as ex:
+                f2 = ex.submit(shard.shard_fm_from_file, cfg.input2, mesh,
+                               cfg.term)
+                sfm1 = shard.shard_fm_from_file(cfg.input1, mesh, cfg.term)
+                sfm2 = f2.result()
+        mesh.synchronize()
+    log(f"done. [{sp.seconds:.2f}s]")
     _log_loader(sfm1, log)
     _log_loader(sfm2, log)
 
@@ -260,53 +250,46 @@ def run_two_datasets_sharded(cfg: Config, mesh: Mesh, log=mpipe._log,
         f"({mesh.size}-device mesh).")
     thr_K, thr_R, minima, da, st = frontier.navigate_two_bwts_sharded(
         sfm1, sfm2, cfg.K, cfg.k_right, ckpt_dir, ckpt_every)
-    t2 = time.perf_counter()
-    seconds["leaf_phase"] = st.pop("leaf_seconds")
-    seconds["node_phase"] = st.pop("node_seconds")
     n = sfm1.n + sfm2.n
     log(f"Computed {st['da_values']}/{n} DA values.")
     log(f"Computed {st['lcp_values']}/{n} LCP values.")
     log(f"Found {st['n_min']} LCP minima.")
     log(f"Processed {st['leaves']} suffix-tree leaves and {st['nodes']} "
-        f"nodes. [{t2 - t1:.2f}s]")
-    log(f"[timing] leaf phase {seconds['leaf_phase']:.2f}s, "
-        f"node phase {seconds['node_phase']:.2f}s "
-        f"({st['leaf_steps']} and {st['node_steps']} mesh steps, "
-        f"{st['comm_bytes_per_step']} routed bytes per step)\n")
+        f"nodes. [{spent('leaf_phase', 'node_phase'):.2f}s]")
+    mpipe._log_phases(log, _steps(st))
 
     log("Phase 4/4: detecting SNPs and indels.")
     log(f"Output events will be stored in {cfg.output}")
     L = frontier.merged_local_n(n, mesh.size)
-    next_thr = calling.next_set_table_sharded(mesh, thr_R, local_n=L, n=n)
-    del thr_R
-    cl = calling.find_clusters_sharded(mesh, thr_K, minima, local_n=L, n=n,
-                                       mcov_out=cfg.mcov_out)
-    del thr_K, minima
-    da_bv = calling.bv_build_sharded(mesh, da, local_n=L)
-    del da
-    mesh.synchronize()
-    t4 = time.perf_counter()
-    seconds["cluster"] = t4 - t2
+    with span("cluster") as sp:
+        next_thr = calling.next_set_table_sharded(mesh, thr_R, local_n=L,
+                                                  n=n)
+        del thr_R
+        cl = calling.find_clusters_sharded(mesh, thr_K, minima, local_n=L,
+                                           n=n, mcov_out=cfg.mcov_out)
+        del thr_K, minima
+        da_bv = calling.bv_build_sharded(mesh, da, local_n=L)
+        del da
+        mesh.synchronize()
     log(f"[timing] cluster detect and DA rank build (sharded) "
-        f"{t4 - t2:.2f}s")
+        f"{sp.seconds:.2f}s")
 
     sfms = (sfm1, sfm2)
-    stats = mpipe.call_and_emit_pair_mode2(
-        cl, cfg, mesh.device,
-        da_rank1=lambda i: calling.bv_rank1_sharded(da_bv, i),
-        da_get=lambda i: calling.bv_get_sharded(da_bv, i),
-        range_counts=[partial(calling.range_counts_sharded, x)
-                      for x in sfms],
-        consensus=[partial(calling.extract_consensus_sharded, x,
-                           k_left=cfg.k_left) for x in sfms],
-        anchor=lambda b, e: calling.first_thr_position_sharded(
-            mesh, next_thr, b, e, local_n=L),
-        dna=[partial(calling.extract_dna_sharded, x, k_right=cfg.k_right)
-             for x in sfms])
-    seconds["call_emit"] = time.perf_counter() - t4
-    log(f"[timing] call+emit {seconds['call_emit']:.2f}s")
+    with span("call_emit") as sp:
+        stats = mpipe.call_and_emit_pair_mode2(
+            cl, cfg, mesh.device,
+            da_rank1=lambda i: calling.bv_rank1_sharded(da_bv, i),
+            da_get=lambda i: calling.bv_get_sharded(da_bv, i),
+            range_counts=[partial(calling.range_counts_sharded, x)
+                          for x in sfms],
+            consensus=[partial(calling.extract_consensus_sharded, x,
+                               k_left=cfg.k_left) for x in sfms],
+            anchor=lambda b, e: calling.first_thr_position_sharded(
+                mesh, next_thr, b, e, local_n=L),
+            dna=[partial(calling.extract_dna_sharded, x,
+                         k_right=cfg.k_right) for x in sfms])
+    log(f"[timing] call+emit {sp.seconds:.2f}s")
     stats.update(st)
     stats["n_clusters"] = cl.n_clusters
-    stats["seconds"] = seconds
     mpipe.log_pair_summary(cl, log)
     return stats

@@ -370,3 +370,51 @@ def test_add_past_2_31_on_card():
     assert x[torch.tensor(sorted(want), device="cuda")].tolist() == \
         [want[p] for p in sorted(want)]
     assert int(x.sum(dtype=torch.int64)) == sum(want.values())
+
+
+def test_spans_on_card(tmp_path):
+    """A device span times the card's work between its two events: queued
+    matrix products take longer on the card than their enqueue on the host,
+    and the span itself allocates no device memory. A mode-1 run on the
+    card records every span of its CPU run, ``node_phase.wait`` inside
+    ``node_phase``."""
+    _needs_cuda()
+    from ebwt2indel_torch.utils import profile
+
+    x = torch.randn(4096, 4096, device="cuda")
+    x @ x  # the first product sets cuBLAS up on the host
+    torch.cuda.synchronize()
+    host = {}
+
+    def body():
+        held = torch.cuda.memory_allocated()
+        with profile.span("empty", device=x.device):
+            pass
+        assert torch.cuda.memory_allocated() == held
+        with profile.span("products", device=x.device) as sp:
+            for _ in range(20):
+                x @ x
+        host["products"] = sp.seconds
+        torch.cuda.synchronize()
+        return {}
+
+    sec = profile.recorded(body)()["seconds"]
+    assert set(sec) == {"empty", "products"}
+    assert sec["products"] > 10 * host["products"] and \
+        sec["empty"] < sec["products"]
+
+    rng = np.random.default_rng(0x5BA7)
+    genome = simulate.random_genome(rng, 20_000)
+    tmp = str(tmp_path / "r.ebwt")
+    with open(tmp, "w") as f:
+        f.write(ebwt.ebwt_of_reads(simulate.sample_reads(rng, genome, 8,
+                                                         100)))
+    keys = {}
+    for dev in ("cuda", "cpu"):
+        st = pipeline.run_one_dataset(
+            Config(input1=tmp, output=tmp + f".{dev}.snp"),
+            log=lambda *a, **k: None, device=dev)
+        keys[dev] = set(st["seconds"])
+        assert st["seconds"]["node_phase.wait"] <= \
+            st["seconds"]["node_phase"]
+    assert keys["cuda"] == keys["cpu"]

@@ -149,5 +149,7 @@ def test_mode3_sharded_snp_matches_jax_and_single_device(data, S):
     for k in _STATS:
         assert st[k] == data["stats"][k], k
     assert set(st["seconds"]) == {"index", "leaf_phase", "node_phase",
-                                  "da_wait", "cluster", "call_emit"}
+                                  "da_wait", "cluster", "call_emit",
+                                  "call_emit.walks", "call_emit.write",
+                                  "call_emit.da_rank"}
     assert st["leaf_steps"] > 0 and st["node_steps"] > 0

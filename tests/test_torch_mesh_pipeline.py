@@ -60,7 +60,8 @@ def test_sharded_snp_matches_jax_and_single_device(data, S):
     for k in _STATS:
         assert st[k] == data["stats"][k], k
     assert set(st["seconds"]) == {"index", "leaf_phase", "node_phase",
-                                  "cluster", "call_emit"}
+                                  "cluster", "call_emit", "call_emit.walks",
+                                  "call_emit.write"}
 
 
 @pytest.fixture(scope="module")

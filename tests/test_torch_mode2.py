@@ -57,8 +57,11 @@ def test_mode2_byte_identical_to_jax(pair, extra):
     assert tuple(extra) == ("-q", "1") or len(want) > 0
     for k in _STATS:
         assert tst[k] == jst[k], k
-    assert set(tst["seconds"]) == {"index", "leaf_phase", "node_phase",
-                                   "cluster", "call_emit"}
+    assert set(tst["seconds"]) == {"index", "index.pack", "index.upload",
+                                   "leaf_phase", "node_phase",
+                                   "node_phase.wait", "cluster", "call_emit",
+                                   "call_emit.walks", "call_emit.write",
+                                   "call_emit.da_rank"}
 
 
 def test_cli_mode2_matches_pipeline(pair, capsys):

@@ -61,8 +61,12 @@ def test_mode3_byte_identical_to_jax(merged, extra):
     assert tuple(extra) == ("-q", "1") or len(want) > 0
     for k in _STATS:
         assert tst[k] == jst[k], k
-    assert set(tst["seconds"]) == {"index", "leaf_phase", "node_phase",
-                                   "da_wait", "cluster", "call_emit"}
+    assert set(tst["seconds"]) == {"index", "index.pack", "index.upload",
+                                   "index.da_side", "leaf_phase",
+                                   "node_phase", "node_phase.wait",
+                                   "da_wait", "cluster", "call_emit",
+                                   "call_emit.walks", "call_emit.write",
+                                   "call_emit.da_rank"}
 
 
 def test_cli_mode3_matches_pipeline(merged, capsys):

@@ -55,8 +55,10 @@ def test_verify_dataset_byte_identical(datasets):
     for k in ("events", "cluster_nr", "leaves", "nodes", "lcp_values",
               "n_min", "n_clusters"):
         assert tst[k] == jst[k], k
-    assert set(tst["seconds"]) == {"index", "leaf_phase", "node_phase",
-                                   "cluster", "call_emit"}
+    assert set(tst["seconds"]) == {"index", "index.pack", "index.upload",
+                                   "leaf_phase", "node_phase",
+                                   "node_phase.wait", "cluster", "call_emit",
+                                   "call_emit.walks", "call_emit.write"}
 
 
 @pytest.mark.parametrize("extra", FLAG_SETS)

@@ -84,7 +84,7 @@ def _flag_names(mode):
 
 def _stats(res):
     return {k: v for k, v in res.stats.items()
-            if k not in ("max_pending", "leaf_seconds", "node_seconds")}
+            if k != "max_pending"}
 
 
 class _TripWire:

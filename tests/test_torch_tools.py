@@ -59,8 +59,10 @@ def test_run_huge_report(tmp_path, extra, capsys):
     root_keys = {"metric", "value", "unit", "positions", "warm_seconds",
                  "cold_seconds", "ref_seconds", "parity", "vs_baseline"}
     assert set(got) == root_keys | {"device", "phase_seconds", "peak_bytes"}
-    assert set(got["phase_seconds"]) == {"index", "leaf_phase", "node_phase",
-                                         "cluster", "call_emit"}
+    assert set(got["phase_seconds"]) == {
+        "index", "index.pack", "index.upload", "leaf_phase", "node_phase",
+        "node_phase.wait", "cluster", "call_emit", "call_emit.walks",
+        "call_emit.write"}
     assert got["peak_bytes"] is None
     assert got["positions"] == n and got["unit"] == "pos/s"
     assert got["cold_seconds"] > 0 and got["warm_seconds"] > 0
