@@ -20,6 +20,11 @@ Phases, each of which must pass (the script exits 1 otherwise):
    byte-identical and the stats equal;
 6. the rank kernel timed against its plain version at the main path's shape:
    the first node chunk (256k nodes x 6 boundaries) of the full-size index;
+   and the next-set kernel (``csrc/next_set.cu``) on 116.15 M flags of the
+   benchmark's density: bit for bit its plain version, timed beside it, its
+   byte bound and the ``torch.cummin`` call the plain version makes, its
+   launches those of phase 4's run (each full-size and mesh run below logs
+   its ``next_set`` launches beside ``rank_decode``'s and must launch both);
 7. three more full-size CUDA runs for the spread of the wall and phase times
    (median, min, max), then one with ``EBWT_PROFILE`` set, whose trace the
    port's ``tracetop`` reads: device time by kernel name and by phase, and
@@ -349,19 +354,20 @@ def _cli_run(args: list, cli_log: str) -> dict:
     import torch
 
     from ebwt2indel_torch import cli
-    from ebwt2indel_torch.ops import rank_cuda
+    from ebwt2indel_torch.ops import rank_cuda, scan_cuda
 
     os.makedirs(os.path.dirname(cli_log), exist_ok=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rank_cuda.reset_launches()
+    scan_cuda.reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(args, device="cuda")
     torch.cuda.synchronize()
     r = {"wall": time.perf_counter() - t0, "text": buf.getvalue(),
-         "launches": dict(rank_cuda.LAUNCHES),
+         "launches": {**rank_cuda.LAUNCHES, **scan_cuda.LAUNCHES},
          "queries": dict(rank_cuda.QUERIES),
          "peak": torch.cuda.max_memory_allocated()}
     with open(cli_log, "w") as f:
@@ -419,8 +425,9 @@ def phase_full(results: dict, data_dir: str, log_dir: str) -> None:
         f"{json.dumps(r['queries'])}")
     if st["n"] != n or not (0 < st["lcp_values"] <= n) or st["events"] <= 0:
         raise AssertionError("implausible full-size result")
-    if launches["rank_decode"] <= 0:
-        raise AssertionError("rank_decode never launched on the main path")
+    if launches["rank_decode"] <= 0 or launches["next_set"] <= 0:
+        raise AssertionError(f"a kernel never launched on the main path: "
+                             f"{launches}")
     results["launches"] = launches
     results["full_stats"] = st
     results["full_path"] = path
@@ -643,8 +650,9 @@ def phase_full_pair(results: dict, mode: int, data_dir: str,
     n = os.path.getsize(paths["merged.ebwt"])
     if n_total != n or not (0 < st["lcp_values"] <= n) or st["events"] <= 0:
         raise AssertionError(f"implausible full-size mode-{mode} result")
-    if launches["rank_decode"] <= 0:
-        raise AssertionError(f"rank_decode never launched on mode {mode}")
+    if launches["rank_decode"] <= 0 or launches["next_set"] <= 0:
+        raise AssertionError(f"a kernel never launched on mode {mode}: "
+                             f"{launches}")
     results[f"mode{mode}"] = {"full_path": paths, "full_out": out, "n": n,
                               "full_wall": wall, "stats": st}
 
@@ -654,11 +662,12 @@ def _measured_run(mode: int, inp, out: str, packed) -> dict:
     the peak memory reset just before and read just after."""
     import torch
 
-    from ebwt2indel_torch.ops import rank_cuda
+    from ebwt2indel_torch.ops import rank_cuda, scan_cuda
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rank_cuda.reset_launches()
+    scan_cuda.reset_launches()
     t0 = time.perf_counter()
     st = RUNS[mode](inp, out, "cuda", packed=packed)
     torch.cuda.synchronize()
@@ -666,12 +675,13 @@ def _measured_run(mode: int, inp, out: str, packed) -> dict:
             "peak": torch.cuda.max_memory_allocated(),
             "launches": rank_cuda.LAUNCHES["rank_decode"],
             "queries": rank_cuda.QUERIES["rank_decode"],
+            "next_set": scan_cuda.LAUNCHES["next_set"],
             "snp": open(out, "rb").read()}
 
 
 def _compare_routes(label: str, runs: dict, keys) -> None:
     """The dense (False) and packed (True) runs wrote the same .snp, with
-    equal stats, and both launched the rank kernel."""
+    equal stats, and both launched the rank and next-set kernels."""
     if runs[False]["snp"] != runs[True]["snp"]:
         raise AssertionError(f"{label}: the packed .snp differs from the "
                              "dense .snp")
@@ -681,9 +691,9 @@ def _compare_routes(label: str, runs: dict, keys) -> None:
                                  f"{runs[False]['stats'][k]} != packed "
                                  f"{runs[True]['stats'][k]}")
     for packed, r in runs.items():
-        if r["launches"] <= 0:
-            raise AssertionError(f"{label}: rank_decode never launched on "
-                                 f"the {_ROUTE[packed]} route")
+        if r["launches"] <= 0 or r["next_set"] <= 0:
+            raise AssertionError(f"{label}: rank_decode or next_set never "
+                                 f"launched on the {_ROUTE[packed]} route")
 
 
 _ROUTE = {False: "dense", True: "packed"}
@@ -695,7 +705,8 @@ def _route_line(label: str, packed: bool, r: dict, n: int) -> None:
     log(f"[{label}] {_ROUTE[packed]}: wall {r['wall']:.4f} s "
         f"({n / r['wall'] / 1e6:.3f} Mpos/s); phases: {phases}; peak "
         f"{r['peak']} bytes ({r['peak'] / n:.3f} B/position); rank_decode "
-        f"{r['launches']} launches, {r['queries']} queries")
+        f"{r['launches']} launches, {r['queries']} queries; next_set "
+        f"{r['next_set']} launches")
 
 
 def phase_packed_116m(results: dict, data_dir: str) -> None:
@@ -745,6 +756,7 @@ def phase_scale_1g(results: dict, data_dir: str, log_dir: str) -> None:
                       "peak": r["peak"],
                       "launches": r["launches"]["rank_decode"],
                       "queries": r["queries"]["rank_decode"],
+                      "next_set": r["launches"]["next_set"],
                       "snp": open(out, "rb").read()}}
     _route_line("scale_1G cli.main", default, runs[default], n)
     runs[not default] = _measured_run(
@@ -1119,8 +1131,9 @@ def phase_mesh(label: str, args: list, want_out: str, want_stats: dict,
         if st[k] != want_stats[k]:
             raise AssertionError(f"{label} {k}: mesh {st[k]} != "
                                  f"single-device {want_stats[k]}")
-    if r["launches"]["rank_decode"] <= 0:
-        raise AssertionError(f"{label}: rank_decode never launched")
+    if r["launches"]["rank_decode"] <= 0 or r["launches"]["next_set"] <= 0:
+        raise AssertionError(f"{label}: a kernel never launched: "
+                             f"{r['launches']}")
     log(f"[{label}] .snp byte-identical to the single-device run's, stats "
         f"equal: {', '.join(keys)}")
 
@@ -1551,7 +1564,8 @@ def phase_past2g31(results: dict, mode: int, data_dir: str,
             f"seconds {st['seconds']}")
         log(f"[{label}] k={k}: peak {r['peak']} bytes ({r['peak'] / n:.3f} "
             f"B/position); rank_decode {r['launches']['rank_decode']} "
-            f"launches, {r['queries']['rank_decode']} queries")
+            f"launches, {r['queries']['rank_decode']} queries; next_set "
+            f"{r['launches']['next_set']} launches")
         log(f"[{label}] k={k}: stats " + ", ".join(
             f"{x} {v}" for x, v in st.items() if x not in ("n", "seconds"))
             + f", max_pending {r['trav']['max_pending']}")
@@ -1709,6 +1723,45 @@ def phase_kernel_at_main_shape(results: dict) -> dict:
     }
 
 
+def phase_next_set_at_main_shape(results: dict) -> dict:
+    """Time the next-set kernel on the benchmark's 116.15 M positions at
+    its thr_R density, against its plain version and ``torch.cummin``;
+    its launches are those of the full-size mode-1 run."""
+    import torch
+
+    from ebwt2indel_torch.ops import scan
+
+    n, density = 116_150_000, 0.64
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flags = (torch.rand(n, generator=gen, device="cuda") <
+             density).to(torch.uint8)
+    got = scan.next_set(flags)
+    want = scan.next_set_plain(flags)
+    err = int((got - want).abs().max())
+    del got, want
+    if err != 0:
+        raise AssertionError(f"next_set kernel != plain at 116.15M: "
+                             f"max_abs_err {err}")
+    ms = time_ms(lambda: scan.next_set(flags), 50)
+    plain_ms = time_ms(lambda: scan.next_set_plain(flags), 3)
+    idx = torch.where(flags != 0, torch.arange(n, device="cuda"), n)
+    library_ms = time_ms(lambda: torch.cummin(idx, dim=0), 3)
+    del idx
+    n_bytes = 9 * n  # each flag read once, each int64 entry written once
+    bound_s = n_bytes / HBM_BYTES_PER_S
+    log(f"[kernel] next_set at n={n}, density {density}: kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, torch.cummin {library_ms:.4f} ms, "
+        f"bound {bound_s * 1e3:.4f} ms ({n_bytes} bytes), equal to plain")
+    return {
+        "name": "next_set", "route": "cuda",
+        "source": "ebwt2indel_torch/csrc/next_set.cu",
+        "replaces": None, "launches": results["launches"]["next_set"],
+        "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+        "bound_by": "bytes", "library_ms": library_ms,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-dir", default=os.path.join("data", "chip_smoke"))
@@ -1717,7 +1770,7 @@ def main() -> int:
     try:
         import torch
 
-        from ebwt2indel_torch.ops import rank_cuda
+        from ebwt2indel_torch.ops import kernels as kernel_lib
     except ImportError as e:
         print(f"chip_smoke: cannot import the port: {e}", file=sys.stderr)
         return 1
@@ -1749,7 +1802,7 @@ def main() -> int:
             return None
 
     phase("build", lambda: log(
-        f"[build] {rank_cuda.build()} in {time.perf_counter() - t0:.2f} s"))
+        f"[build] {kernel_lib.build()} in {time.perf_counter() - t0:.2f} s"))
     if not failures:
         phase("kernel_vs_plain", phase_kernel_vs_plain)
         phase("cuda_vs_cpu", phase_cuda_vs_cpu, data_dir)
@@ -1758,10 +1811,13 @@ def main() -> int:
         phase("full_mode1", phase_full, results, data_dir,
               os.path.join(here, args.log_dir))
         if "launches" in results:
-            k = phase("kernel_at_main_shape", phase_kernel_at_main_shape,
-                      results)
-            if k:
-                kernels.append(k)
+            for name, fn in (("kernel_at_main_shape",
+                              phase_kernel_at_main_shape),
+                             ("next_set_at_main_shape",
+                              phase_next_set_at_main_shape)):
+                k = phase(name, fn, results)
+                if k:
+                    kernels.append(k)
             phase("repeats", phase_repeats, results, data_dir)
             phase("profile", phase_profile, results, data_dir)
         phase("pair_cuda_vs_cpu", phase_pair_cuda_vs_cpu, data_dir)

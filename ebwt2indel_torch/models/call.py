@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import rank
+from ..ops import rank, scan
 from . import fm_index as fm_ops
 from .fm_index import FMIndex
 
@@ -112,14 +112,9 @@ def extract_dna_core(f_char, fl, starts: torch.Tensor, active: torch.Tensor,
     return seq, length
 
 
-def next_set_table(thr_R: torch.Tensor) -> torch.Tensor:
-    """next_set[i] = smallest j >= i with thr_R[j] set (n if none): a
-    cumulative minimum over the flipped vector."""
-    n = thr_R.shape[0]
-    idx = torch.where(thr_R != 0,
-                      torch.arange(n, dtype=torch.int64, device=thr_R.device),
-                      n)
-    return torch.cummin(idx.flip(0), dim=0).values.flip(0)
+# next_set[i] = smallest j >= i with thr_R[j] set (n if none): the JAX
+# package's name for the dense route's table, which the next-set op builds
+next_set_table = scan.next_set
 
 
 def _lowest_bit(w: torch.Tensor) -> torch.Tensor:
@@ -133,15 +128,16 @@ def _anchor_from_words(words: torch.Tensor, n: int):
     """The bit-packed route's right-context anchor structure (words, T)
     from its thr_R words (``ops/bits.py`` layout; call.py:187, :214):
     T[b] = the first set position >= 128 * b (n if none), nb + 1 entries
-    with T[nb] = n. The reverse cumulative minimum runs over the nb block
-    entries, not over n positions."""
+    with T[nb] = n. The next-set op runs over the nb blocks' "has a set
+    bit" flags, not over n positions, and one gather reads each block's
+    first bit."""
     w = words.to(torch.int64) & _LOW32
     slot = torch.arange(0, 128, 32, device=w.device)  # bit 0 of each word
     first = (_lowest_bit(w).view(-1, 4) + slot).min(1).values
     nb = first.shape[0]
-    blk = torch.where(first < 128,
-                      torch.arange(nb, device=w.device) * 128 + first, n)
-    T = torch.cummin(blk.flip(0), 0).values.flip(0)
+    b = scan.next_set(first < 128)  # the first block >= b with a set bit
+    T = torch.where(b < nb, b * 128 + first[b.clamp_max(max(nb - 1, 0))],
+                    n)
     return words, torch.cat([T, T.new_full((1,), n)])
 
 
@@ -149,7 +145,7 @@ def first_thr_position_device(next_set, begins: torch.Tensor,
                               ends: torch.Tensor):
     """For each cluster the first position in [begin, end) with thr_R set
     (the right-context anchor, cpp:979-985): returns (pos, found).
-    ``next_set`` is the dense route's ``next_set_table`` or the packed
+    ``next_set`` is the dense route's next-set table or the packed
     route's (words, T); with (words, T) it is one word-row gather, the
     lowest set bit at or after the in-block offset, else T[b + 1]
     (call.py:229-249)."""

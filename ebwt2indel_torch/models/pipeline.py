@@ -19,6 +19,8 @@ The parts, each placed here at its call site:
   ``index.upload``: the upload and the phase's closing synchronise (the
   pageable copies block); ``index.da_side``: mode 3's DA-side worker,
   which runs beside phases 1-3.
+* ``cluster.next_set``: the anchor table's build (``ops/scan.py``), on
+  the device's clock.
 * ``call_emit.walks``: the calling walks through their last device-to-host
   copy; ``call_emit.write``: the host's emission and the ``.snp`` write;
   ``call_emit.da_rank``: the document array's rank (modes 2 and 3), on the
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
-from ..ops import bits, packing, rank
+from ..ops import bits, packing, rank, scan
 from ..utils import dna
 from ..utils.config import Config
 from ..utils.profile import profiled, span, spent
@@ -74,13 +76,17 @@ def _decode_rows(codes: np.ndarray, term: int):
 def _anchor_and_clusters(res: traverse.TraversalResult, n: int,
                          mcov_out: int):
     """The right-context anchor structure and the clusters, from either
-    route's flags (pipeline.py:132-142 of the JAX package)."""
+    route's flags (pipeline.py:132-142 of the JAX package). The anchor
+    table's build is the span ``cluster.next_set``, on the device's
+    clock."""
+    with span("cluster.next_set", device=res.thr_R.device):
+        anchor = (call._anchor_from_words(res.thr_R, n) if res.packed
+                  else scan.next_set(res.thr_R))
     if res.packed:
-        return (call._anchor_from_words(res.thr_R, n),
-                cluster.find_clusters_device_packed(
-                    res.thr_K, res.minima, n=n, mcov_out=mcov_out))
-    return (call.next_set_table(res.thr_R),
-            cluster.find_clusters_device(res.thr_K, res.minima, mcov_out))
+        return anchor, cluster.find_clusters_device_packed(
+            res.thr_K, res.minima, n=n, mcov_out=mcov_out)
+    return anchor, cluster.find_clusters_device(res.thr_K, res.minima,
+                                                mcov_out)
 
 
 def _load_index(path: str, term: int, dev: torch.device) -> FMIndex:
@@ -288,12 +294,14 @@ def run_two_datasets(cfg: Config, log=_log, device="cuda",
     log("Phase 4/4: detecting SNPs and indels.")
     log(f"Output events will be stored in {cfg.output}")
     with span("cluster") as sp:
-        next_thr, cl = _anchor_and_clusters(res, n, cfg.mcov_out)
         # the DA stays on the device as a rank structure (the reference
         # scans its vector<bool> DA, cpp:1431-1432); the packed route's DA
-        # is already words in its layout (pipeline.py:276-277)
+        # is already words in its layout (pipeline.py:276-277). Built
+        # first, so that its n-sized int64 temporaries are freed before
+        # the anchor table is allocated.
         da_bv = ((res.da, bits.bv_counts(res.da)) if res.packed
                  else bits.bv_build(res.da))
+        next_thr, cl = _anchor_and_clusters(res, n, cfg.mcov_out)
         del res
         device_mod.synchronize(dev)
     log(f"[timing] cluster detect and DA rank build (device) "

@@ -1,9 +1,5 @@
-"""Binding of the CUDA rank kernel (``csrc/rank_decode.cu``).
-
-The kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface under ``build/kernels/`` (gitignored) at first use,
-keyed by a hash of its source, and loaded with ctypes. Nothing is built or
-imported from CUDA when this module is imported.
+"""Binding of the CUDA rank kernel (``csrc/rank_decode.cu``), built with
+the port's other kernels into one library by ``ops/kernels.py``.
 
 ``rank_decode`` is the wrapper: it checks its tensors, allocates the output,
 launches on PyTorch's current stream, raises if the launch failed, and adds
@@ -13,70 +9,17 @@ one to ``LAUNCHES["rank_decode"]`` and its query count to
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "rank_decode.cu"
-BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from . import kernels
 
 LAUNCHES = {"rank_decode": 0}
 QUERIES = {"rank_decode": 0}
-
-_lock = threading.Lock()
-_lib = None
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = QUERIES[k] = 0
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("rank_decode: nvcc not found (needs the CUDA toolkit)")
-
-
-def build() -> Path:
-    """Compile the kernel library if this source has not been built yet;
-    returns its path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"librank_decode_{digest}.so"
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{r.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
-def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.rank_decode.restype = ctypes.c_int
-            lib.rank_decode.argtypes = [
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ]
-            _lib = lib
-        return _lib
 
 
 def rank_decode(blocks: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -104,7 +47,7 @@ def rank_decode(blocks: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
                       device=blocks.device)
     if pos.shape[0] == 0:
         return out.reshape(shape + (4,))
-    lib = _load()
+    lib = kernels.load()
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rank_decode(blocks.data_ptr(), blocks.shape[0],

@@ -18,7 +18,7 @@ import torch
 
 from ..models import call, cluster
 from ..models import fm_index as fm_ops
-from ..ops import bits, rank
+from ..ops import bits, rank, scan
 from . import shard
 from .mesh import Mesh
 from .shard import ShardedFM
@@ -53,27 +53,18 @@ def extract_dna_sharded(sfm: ShardedFM, starts: torch.Tensor,
                                  starts, active, k_right)
 
 
-def _positions(mesh: Mesh, s: int, local_n: int) -> torch.Tensor:
-    return torch.arange(s * local_n, (s + 1) * local_n,
-                        device=mesh.devices[s])
-
-
 def next_set_table_sharded(mesh: Mesh, thr_R: dict, *, local_n: int,
                            n: int) -> dict:
     """``call.next_set_table`` on the mesh: next_set[i] = the smallest
-    j >= i with thr_R[j] set (n if none), per shard. A local reverse
-    cumulative minimum, then the minimum of the shards to the right (one
-    gather of S values)."""
-    loc = {}
-    for s in mesh.local:
-        pos = _positions(mesh, s, local_n)
-        idx = torch.where((thr_R[s] != 0) & (pos < n), pos, n)
-        del pos
-        loc[s] = torch.cummin(idx.flip(0), dim=0).values.flip(0)
+    j >= i with thr_R[j] set (n if none), per shard. The next-set op over
+    the shard's slice from its first global position, then the minimum of
+    the shards to the right (one gather of S values)."""
+    loc = {s: scan.next_set(thr_R[s], base=s * local_n, n=n)
+           for s in mesh.local}
     firsts = torch.cat(mesh.all_gather({s: loc[s][:1] for s in mesh.local}))
     for s in mesh.local:
         right = firsts[s + 1:].min() if s + 1 < mesh.size else n
-        loc[s] = torch.clamp_max(loc[s], int(right))
+        loc[s].clamp_max_(int(right))  # in place: no second table
     return loc
 
 

@@ -15,6 +15,7 @@ from ebwt2indel_tpu.tools import simulate as jsim
 from ebwt2indel_tpu.utils import dna
 from ebwt2indel_torch.models import call
 from ebwt2indel_torch.models import fm_index as fm
+from ebwt2indel_torch.ops import bits, scan, scan_cuda
 
 
 @pytest.fixture(scope="module")
@@ -105,3 +106,89 @@ def test_next_set_table_and_anchor_match_jax(rng, p):
     hpos, hfound = jcall.first_thr_position(thr_R, b, e)
     np.testing.assert_array_equal(pos.numpy(), hpos)
     np.testing.assert_array_equal(found.numpy(), hfound)
+
+
+_TILE = 4096  # positions per block of csrc/next_set.cu
+
+
+def _next_set_brute(flags, base, n):
+    """out[i] = base + the smallest j >= i with flags[j] set and
+    base + j < n, else n: one position at a time from the right."""
+    out = np.empty(len(flags), np.int64)
+    nxt = n
+    for i in range(len(flags) - 1, -1, -1):
+        if flags[i] and base + i < n:
+            nxt = base + i
+        out[i] = nxt
+    return out
+
+
+def _flags(kind, size, rng):
+    if kind == "random":
+        return (rng.random(size) < 0.3).astype(np.uint8)
+    f = np.zeros(size, np.uint8)
+    if kind == "all":
+        f[:] = 1
+    elif kind == "first":
+        f[0] = 1
+    elif kind == "last":
+        f[-1] = 1
+    return f
+
+
+# (flags, size, base, n): n None is base + size; sizes around one tile
+_NEXT_SET_CASES = {
+    "n1_set": ("all", 1, 0, None),
+    "n1_unset": ("none", 1, 0, None),
+    "all_zero": ("none", 1000, 0, None),
+    "all_set": ("all", 1000, 0, None),
+    "only_first": ("first", 1000, 0, None),
+    "only_last": ("last", 1000, 0, None),
+    "tile_minus_1": ("random", _TILE - 1, 0, None),
+    "tile": ("random", _TILE, 0, None),
+    "tile_plus_1": ("random", _TILE + 1, 0, None),
+    "mesh_shard": ("random", 1000, 3000, 3500),
+    "mesh_shard_past_n": ("all", 1000, 3000, 2000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_NEXT_SET_CASES) + ["packed_blocks"])
+def test_next_set_plain_matches_brute_force(rng, case):
+    """The next-set op's plain version (the CPU path of ``scan.next_set``)
+    against a loop over positions: edge sizes, the mesh form (``base``,
+    and ``n`` below ``base + len``) and the packed route's block table."""
+    if case == "packed_blocks":
+        # blocks with several set bits, with none, and the last position
+        n = 5 * 128 + 77
+        f = np.zeros(n, np.uint8)
+        f[[130, 131, 400, n - 1]] = 1
+        want = _next_set_brute(f, 0, n)
+        nb = n // 128 + 1
+        padded = torch.zeros(nb * 128, dtype=torch.uint8)
+        padded[:n] = torch.from_numpy(f)
+        words, T = call._anchor_from_words(bits.pack_bits(padded), n)
+        want_T = [int(want[128 * b]) if 128 * b < n else n
+                  for b in range(nb)] + [n]
+        assert T.dtype == torch.int64 and T.tolist() == want_T
+        return
+    kind, size, base, n = _NEXT_SET_CASES[case]
+    f = _flags(kind, size, rng)
+    n = base + size if n is None else n
+    want = _next_set_brute(f, base, n)
+    for dtype in (torch.uint8, torch.bool):
+        got = scan.next_set(torch.from_numpy(f).to(dtype), base, n)
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want)
+    if base == 0 and n == size:
+        np.testing.assert_array_equal(
+            call.next_set_table(torch.from_numpy(f)).numpy(), want)
+
+
+def test_next_set_refuses_other_devices():
+    """The CUDA wrapper refuses a CPU tensor (the CPU takes the plain
+    version through ``scan.next_set``, never the kernel), and
+    ``scan.next_set`` a device it has no path for."""
+    with pytest.raises(ValueError):
+        scan_cuda.next_set(torch.zeros(3, dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        scan.next_set(torch.zeros(3, dtype=torch.uint8, device="meta"))

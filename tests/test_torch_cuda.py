@@ -4,8 +4,9 @@ mode on the CPU, the bit-packed route against the dense route, a traversal
 resumed from its checkpoint against an uninterrupted run, modes 1, 3 and 2
 on a 4-shard mesh held by the card against the CPU's single-device run, a
 mesh run resumed from its checkpoints against an uninterrupted one, an
-index read from its cache against a fresh one, and the windowed add into a
-vector past 2^31 elements.
+index read from its cache against a fresh one, the windowed add into a
+vector past 2^31 elements, and the CUDA next-set kernel against its plain
+version, at the benchmark's size and past 2^31 positions.
 A CUDA kernel has no CPU mode, so without a card these skip. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from ebwt2indel_torch.models import pipeline, traverse
-from ebwt2indel_torch.ops import packing, rank, rank_cuda
+from ebwt2indel_torch.ops import packing, rank, rank_cuda, scan, scan_cuda
 from ebwt2indel_torch.tools import ebwt, genhuge, simulate
 from ebwt2indel_torch.utils.config import Config
 
@@ -418,3 +419,115 @@ def test_spans_on_card(tmp_path):
         assert st["seconds"]["node_phase.wait"] <= \
             st["seconds"]["node_phase"]
     assert keys["cuda"] == keys["cpu"]
+
+
+_TILE = 4096  # positions per block of csrc/next_set.cu
+# the share of positions with thr_R set (LCP >= 30) in the benchmark's
+# inputs: 0.6413 of 116,148,788 on a mode-1 input of 25x 100 bp reads
+BENCH_THR_R_DENSITY = 0.64
+BENCH_N = 116_150_000
+
+
+def _card_flags(kind: str, size: int, gen: torch.Generator) -> torch.Tensor:
+    if kind == "random":
+        return (torch.rand(size, generator=gen, device="cuda") <
+                0.3).to(torch.uint8)
+    f = torch.zeros(size, dtype=torch.uint8, device="cuda")
+    if kind == "all":
+        f[:] = 1
+    elif kind == "first":
+        f[0] = 1
+    elif kind == "last":
+        f[-1] = 1
+    return f
+
+
+# (flags, size, base, n); n None is base + size
+_EDGES = {
+    "n1_set": ("all", 1, 0, None),
+    "n1_unset": ("none", 1, 0, None),
+    "all_zero": ("none", 3 * _TILE, 0, None),
+    "all_set": ("all", 3 * _TILE, 0, None),
+    "only_first": ("first", 3 * _TILE + 5, 0, None),
+    "only_last": ("last", 3 * _TILE + 5, 0, None),
+    "tile_minus_1": ("random", _TILE - 1, 0, None),
+    "tile": ("random", _TILE, 0, None),
+    "tile_plus_1": ("random", _TILE + 1, 0, None),
+    "mesh_shard": ("random", 10 * _TILE + 3, 7 * _TILE, 12 * _TILE),
+    "mesh_shard_past_n": ("all", 1000, 3000, 2000),
+    "base_past_2_31": ("random", 2 * _TILE + 1, 2**31 + 5, 2**31 + 6000),
+    # more tiles than one pass of the carry block (8,192 tiles)
+    "carry_passes": ("random", 9000 * _TILE + 17, 0, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_EDGES))
+def test_next_set_kernel_matches_plain_on_card(case):
+    """Bit for bit the plain version at the edge sizes, and one launch
+    counted per call; unaligned flags (a view one byte in) take the kernel's
+    byte loads."""
+    _needs_cuda()
+    kind, size, base, n = _EDGES[case]
+    gen = torch.Generator(device="cuda").manual_seed(size)
+    f = _card_flags(kind, size, gen)
+    for flags in (f, f.to(torch.bool)):
+        before = scan_cuda.LAUNCHES["next_set"]
+        got = scan.next_set(flags, base, n)
+        torch.cuda.synchronize()
+        assert scan_cuda.LAUNCHES["next_set"] == before + 1
+        assert torch.equal(got, scan.next_set_plain(flags, base, n))
+    held = torch.zeros(size + 1, dtype=torch.uint8, device="cuda")
+    held[1:] = f
+    view = held[1:]
+    assert view.data_ptr() % 16
+    assert torch.equal(scan.next_set(view, base, n),
+                       scan.next_set_plain(f, base, n))
+
+
+def _rounded(nbytes: int) -> int:
+    return -(-nbytes // 512) * 512  # the caching allocator's block size
+
+
+def test_next_set_at_benchmark_size_on_card():
+    """At the benchmark's 116.15 M positions and flag density: bit for bit
+    the plain version, one launch, and the device memory the call adds at
+    its peak no more than the 8 B/position table plus 8 B of scratch per
+    tile."""
+    _needs_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0x5E7)
+    f = (torch.rand(BENCH_N, generator=gen, device="cuda") <
+         BENCH_THR_R_DENSITY).to(torch.uint8)
+    del gen
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    before = scan_cuda.LAUNCHES["next_set"]
+    got = scan.next_set(f)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - held
+    assert scan_cuda.LAUNCHES["next_set"] == before + 1
+    tiles = -(-BENCH_N // _TILE)
+    assert grew <= _rounded(8 * BENCH_N) + _rounded(8 * tiles), grew
+    assert torch.equal(got, scan.next_set_plain(f))
+
+
+def test_next_set_past_2_31_on_card():
+    """2^31 + 12,289 sparse flags (2 GB): every entry is the first set
+    position at or after it, checked window by window against a
+    ``searchsorted`` over the set positions, on both sides of 2^31."""
+    _needs_cuda()
+    big = 2**31
+    n = big + 3 * _TILE + 1
+    f = torch.zeros(n, dtype=torch.uint8, device="cuda")
+    pos = [5, 2**30 - 1, big - 1, big, big + 4095, big + 4097]
+    f[torch.tensor(pos, device="cuda")] = 1
+    got = scan.next_set(f)
+    torch.cuda.synchronize()
+    del f
+    P = torch.tensor(pos + [n], device="cuda")
+    window = 2**28
+    for lo in range(0, n, window):
+        i = torch.arange(lo, min(lo + window, n), device="cuda")
+        assert torch.equal(got[lo:lo + window],
+                           P[torch.searchsorted(P, i)]), lo
+    assert got[-1].item() == n and got[big].item() == big

@@ -26,8 +26,8 @@ from ebwt2indel_torch.utils.config import Config
 K, K_RIGHT = 8, 12
 _LINE = re.compile(r"\[progress\] processed (\d+) items, (\d+) pending")
 _PHASES = {"index", "leaf_phase", "node_phase", "cluster", "call_emit"}
-_PARTS = {"index.pack", "index.upload", "node_phase.wait", "call_emit.walks",
-          "call_emit.write"}
+_PARTS = {"index.pack", "index.upload", "node_phase.wait", "cluster.next_set",
+          "call_emit.walks", "call_emit.write"}
 
 
 @pytest.fixture(scope="module")

@@ -59,7 +59,8 @@ def test_mode2_byte_identical_to_jax(pair, extra):
         assert tst[k] == jst[k], k
     assert set(tst["seconds"]) == {"index", "index.pack", "index.upload",
                                    "leaf_phase", "node_phase",
-                                   "node_phase.wait", "cluster", "call_emit",
+                                   "node_phase.wait", "cluster",
+                                   "cluster.next_set", "call_emit",
                                    "call_emit.walks", "call_emit.write",
                                    "call_emit.da_rank"}
 

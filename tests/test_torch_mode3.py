@@ -64,7 +64,8 @@ def test_mode3_byte_identical_to_jax(merged, extra):
     assert set(tst["seconds"]) == {"index", "index.pack", "index.upload",
                                    "index.da_side", "leaf_phase",
                                    "node_phase", "node_phase.wait",
-                                   "da_wait", "cluster", "call_emit",
+                                   "da_wait", "cluster", "cluster.next_set",
+                                   "call_emit",
                                    "call_emit.walks", "call_emit.write",
                                    "call_emit.da_rank"}
 

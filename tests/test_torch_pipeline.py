@@ -57,7 +57,8 @@ def test_verify_dataset_byte_identical(datasets):
         assert tst[k] == jst[k], k
     assert set(tst["seconds"]) == {"index", "index.pack", "index.upload",
                                    "leaf_phase", "node_phase",
-                                   "node_phase.wait", "cluster", "call_emit",
+                                   "node_phase.wait", "cluster",
+                                   "cluster.next_set", "call_emit",
                                    "call_emit.walks", "call_emit.write"}
 
 

@@ -129,8 +129,8 @@ _MODES = {
         ("index.da_side", "da_wait", "call_emit.da_rank")),
 }
 _COMMON = {"index", "index.pack", "index.upload", "leaf_phase", "node_phase",
-           "node_phase.wait", "cluster", "call_emit", "call_emit.walks",
-           "call_emit.write"}
+           "node_phase.wait", "cluster", "cluster.next_set", "call_emit",
+           "call_emit.walks", "call_emit.write"}
 
 
 @pytest.mark.parametrize("mode", [1, 2, 3])
@@ -138,7 +138,8 @@ def test_parts_within_their_phase(inputs, mode):
     """``index.pack`` and ``index.upload`` run one after the other inside
     ``index``, ``call_emit.walks`` and ``call_emit.write`` inside
     ``call_emit``; the DA rank inside the walks, the node steps' waits
-    inside the node phase. (Mode 3's ``index.da_side`` runs in a worker
+    inside the node phase, the anchor table's build inside ``cluster``.
+    (Mode 3's ``index.da_side`` runs in a worker
     beside phases 1-3, no part of ``index``'s time.)"""
     run, paths, extra = _MODES[mode]
     st = run(Config(output=str(inputs / f"m{mode}.snp"),
@@ -150,6 +151,7 @@ def test_parts_within_their_phase(inputs, mode):
     assert sec["call_emit.walks"] + sec["call_emit.write"] <= \
         sec["call_emit"]
     assert sec["node_phase.wait"] <= sec["node_phase"]
+    assert sec["cluster.next_set"] <= sec["cluster"]
     if "call_emit.da_rank" in sec:
         assert sec["call_emit.da_rank"] <= sec["call_emit.walks"]
 

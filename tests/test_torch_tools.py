@@ -61,8 +61,8 @@ def test_run_huge_report(tmp_path, extra, capsys):
     assert set(got) == root_keys | {"device", "phase_seconds", "peak_bytes"}
     assert set(got["phase_seconds"]) == {
         "index", "index.pack", "index.upload", "leaf_phase", "node_phase",
-        "node_phase.wait", "cluster", "call_emit", "call_emit.walks",
-        "call_emit.write"}
+        "node_phase.wait", "cluster", "cluster.next_set", "call_emit",
+        "call_emit.walks", "call_emit.write"}
     assert got["peak_bytes"] is None
     assert got["positions"] == n and got["unit"] == "pos/s"
     assert got["cold_seconds"] > 0 and got["warm_seconds"] > 0
