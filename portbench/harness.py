@@ -1,17 +1,20 @@
-"""One run of one cell: set-up, the measured window, the traced samples, the
-reference and the result line (``run``).
+"""One run of one cell: set-up, the measured window, the counting sample,
+the traced samples, the reference and the result line (``run``).
 
 Set-up makes the inputs on the device from the seed (``gen.py``), writes
 the files the traffic's argv names into a fresh directory under
-``TMPDIR``, and runs one untimed sample, which builds the rank kernel and
-the native packer into the checkout on a first run and loads every kernel
-a sample uses. Each sample is one call of ``ebwt2indel_torch.cli.main`` on
-the cell's argv, its log going to a file. The window runs whole samples
-and ends with the first that finishes after ``seconds``. With ``trace``,
-``TRACED_SAMPLES`` more samples run under ``torch.profiler`` once the
-window has closed. Then the program's state is freed and every sample's
-``.snp`` bytes are judged against the plain reference
-(``reference/calls.py``), computed on the same device from the same reads.
+``TMPDIR``, and runs one untimed sample, which builds the program's
+kernels and the native packer into the checkout on a first run and loads
+every kernel a sample uses. Each sample is one call of
+``ebwt2indel_torch.cli.main`` on the cell's argv, its log going to a file.
+The window runs whole samples and ends with the first that finishes after
+``seconds``. With ``trace``, one counting sample follows, neither timed
+nor profiled, in which each rank kernel launch is reduced at once to two
+host integers (its distinct block rows and its queries), and then
+``TRACED_SAMPLES`` samples run under ``torch.profiler``. Then the
+program's state is freed and every sample's ``.snp`` bytes are judged
+against the plain reference (``reference/calls.py``), computed on the
+same device from the same reads.
 """
 
 from __future__ import annotations
@@ -35,7 +38,6 @@ from .reference import calls
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "ebwt2indel_tpu")
 PIPELINES = ("run_one_dataset", "run_two_datasets", "run_two_datasets_da")
-PHASES = ("index", "leaf_phase", "node_phase", "cluster", "call_emit")
 TRACED_SAMPLES = 2
 # bytes one rank_decode launch needs: a 64-byte block row per distinct row
 # (i >> 7), an int64 position in and four int64 counts out per query
@@ -63,8 +65,9 @@ def prepare_environment(root: Path) -> None:
 class Program:
     """The system under test on one argv: each ``sample`` is one call of
     ``cli.main``. While ``hooked``, the pipeline function that ``cli.main``
-    dispatches to hands its stats to the harness, and each rank kernel
-    launch's block rows are kept while ``rows`` is a list."""
+    dispatches to hands its stats to the harness, and while ``counts`` is
+    a list each rank kernel launch appends its distinct block rows and its
+    queries to it, two host integers; nothing of a launch outlives it."""
 
     def __init__(self, argv: list[str], device: torch.device, work: str,
                  out_path: str):
@@ -78,7 +81,7 @@ class Program:
         self.log_path = os.path.join(work, "program.log")
         self.out_path = out_path
         self.outputs: dict[str, bytes] = {}
-        self.rows: list[torch.Tensor] | None = None
+        self.counts: list[tuple[int, int]] | None = None
         self._stats = None
 
     @contextlib.contextmanager
@@ -93,8 +96,9 @@ class Program:
             return run
 
         def rank_decode(blocks, i):
-            if self.rows is not None:
-                self.rows.append((i >> 7).reshape(-1))
+            if self.counts is not None and i.numel():
+                self.counts.append((torch.unique(i >> 7).numel(),
+                                    i.numel()))
             return decode(blocks, i)
 
         for n, fn in saved.items():
@@ -184,33 +188,69 @@ def _show_diff(got: bytes, want: bytes, most: int = 3) -> None:
                 return
 
 
-def _traced(prog: Program, device: torch.device, work: str):
-    """TRACED_SAMPLES samples under the profiler: their records and the
-    trace's summary with the rank kernel's bytes and launches."""
+def launch_bytes(counts) -> int:
+    """Bytes the rank kernel's launches need, from each launch's
+    (distinct block rows, queries)."""
+    return sum(ROW_BYTES * rows + QUERY_BYTES * queries
+               for rows, queries in counts)
+
+
+def _counted(prog: Program) -> dict:
+    """One more sample of the same argv, neither timed nor profiled, with
+    its rank kernel bytes (``rank_bytes``) counted launch by launch."""
+    prog.counts = []
+    try:
+        s = prog.sample()
+    finally:
+        counts, prog.counts = prog.counts, None
+    s["rank_bytes"] = launch_bytes(counts)
+    return s
+
+
+def traced_rank_bytes(counted: dict, traced: list[dict]) -> int | None:
+    """The rank kernel's bytes over the traced samples: the counted
+    sample's, once for each, where every traced sample launched the kernel
+    as often and on as many queries as the counted one; else None, and
+    standard error says why."""
+    want = (counted["launches"], counted["queries"])
+    off = [(s["launches"], s["queries"]) for s in traced
+           if (s["launches"], s["queries"]) != want]
+    if off:
+        sys.stderr.write(f"[portbench] rank_bytes left out: the counted "
+                         f"sample made (launches, queries) {want}, traced "
+                         f"samples {off}\n")
+        return None
+    return counted["rank_bytes"] * len(traced)
+
+
+def _traced(prog: Program, device: torch.device, work: str, counted: dict):
+    """TRACED_SAMPLES samples under the profiler: their records, the
+    trace's summary with the rank kernel's bytes and launches, and the
+    device's memory peak over them."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
+    cuda = device.type == "cuda"
+    if cuda:
         acts.append(ProfilerActivity.CUDA)
-    prog.rows = []
+        torch.cuda.reset_peak_memory_stats(device)
     done = []
     with profile(activities=acts) as prof:
         for _ in range(TRACED_SAMPLES):
             with record_function(tracing.SAMPLE):
                 done.append(prog.sample())
-    rows, prog.rows = prog.rows, None
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     path = os.path.join(work, "trace.json")
     prof.export_chrome_trace(path)
     del prof
-    summary = tracing.summarize(tracing.load_events(path), PHASES,
-                                ("rank_decode",))
+    trace_bytes = os.path.getsize(path)
+    summary = tracing.summarize(tracing.load_events(path), ("rank_decode",))
     os.remove(path)
     if summary is not None:
-        summary["rank_launches"] = len(rows)
-        summary["rank_bytes"] = sum(
-            ROW_BYTES * torch.unique(r).numel() + QUERY_BYTES * r.numel()
-            for r in rows)
-    return done, summary
+        summary["rank_launches"] = sum(s["launches"] for s in done)
+        summary["rank_bytes"] = traced_rank_bytes(counted, done)
+        summary["trace_file_bytes"] = trace_bytes
+    return done, summary, peak
 
 
 def run(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
@@ -221,7 +261,8 @@ def run(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
     cuda = dev.type == "cuda"
     recipe = {**cell.config, **(recipe_overrides or {})}
     work = tempfile.mkdtemp(prefix=f"portbench-{cell.name}-")
-    marks = {"entered": time.perf_counter() - t0}
+    marks = {"entered": time.perf_counter() - t0}  # seconds from the start
+    peaks = {}  # the device's memory peak of each stage, bytes
     try:
         reads1, reads2 = gen.make_reads(recipe, seed, dev)
         if cuda:
@@ -233,6 +274,8 @@ def run(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
         reads1, reads2 = reads1.cpu(), reads2.cpu()
         _free(dev)
         marks["inputs written"] = time.perf_counter() - t0
+        if cuda:
+            peaks["inputs"] = torch.cuda.max_memory_allocated(dev)
         out_path = os.path.join(work, "out.snp")
         argv = [a.format(out=out_path, **paths)
                 for a in cell.traffic["argv"]]
@@ -252,10 +295,15 @@ def run(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
                 end = time.perf_counter()
                 if end - start >= seconds:
                     break
-            peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-            traced, summary = [], None
+            peak = peaks["window"] = \
+                torch.cuda.max_memory_allocated(dev) if cuda else 0
+            counted, traced, summary = [], [], None
             if trace:
-                traced, summary = _traced(prog, dev, work)
+                counted = [_counted(prog)]
+                marks["counted"] = time.perf_counter() - t0
+                traced, summary, peaks["traced"] = _traced(prog, dev, work,
+                                                           counted[0])
+                marks["traced"] = time.perf_counter() - t0
         loaded = forbidden_modules()
         if loaded:
             sys.stderr.write(f"[portbench] refused: {', '.join(loaded)} "
@@ -265,18 +313,24 @@ def run(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
         del prog
         _free(dev)
 
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
         t_ref = time.perf_counter()
         want = calls.snp_bytes(reads1.to(dev), reads2.to(dev),
                                int(cell.traffic["mode"]),
                                calls.Params.from_argv(argv))
         _free(dev)
-        sys.stderr.write(f"[portbench] set-up marks (s) {marks}; reference "
-                         f"{time.perf_counter() - t_ref} s\n")
+        if cuda:
+            peaks["reference"] = torch.cuda.max_memory_allocated(dev)
+        sys.stderr.write(f"[portbench] marks (s) {marks}; reference "
+                         f"{time.perf_counter() - t_ref} s; device memory "
+                         f"peaks (B) {peaks}\n")
         wrong = {d: records_wrong(data, want) for d, data in outputs.items()}
         for d, data in outputs.items():
             if wrong[d]:
                 _show_diff(data, want)
-        judged = [warm] + window + traced
+        attempted = len(window) + len(traced)
+        judged = window + traced + [warm] + counted
         bad = [not s["ok"] or wrong[s["digest"]] > 0 for s in judged]
         compared = {
             "samples_wrong": {"value": sum(bad), "limit": 0},
@@ -306,8 +360,8 @@ def run(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
                 metrics[m.name] = {"value": v, "unit": m.unit}
         device_rec = {"platform": "gpu", "kind": kind, "count": cell.chips,
                       "memory_peak_bytes": peak}
-        result = {"correct": correct, "attempted": len(window) + len(traced),
-                  "failed": sum(bad[1:]), "metrics": metrics,
+        result = {"correct": correct, "attempted": attempted,
+                  "failed": sum(bad[:attempted]), "metrics": metrics,
                   "device": device_rec}
         if summary is not None:
             device_rec["busy_s"] = summary["busy_s"]
@@ -318,7 +372,10 @@ def run(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
                 "idle_gaps": summary["idle_gaps"]}
         result["compared"] = compared
 
-        _report(positions, setup_s, warm, window, traced, summary, record)
+        _report(positions, setup_s, warm, window, counted, traced, summary,
+                record)
+        sys.stderr.write(f"[portbench] run wall {time.perf_counter() - t0} "
+                         "s\n")
         for name, c in compared.items():
             sys.stderr.write(f"{name} {c['value']} limit {c['limit']}\n")
         sys.stderr.flush()
@@ -328,16 +385,18 @@ def run(cell: manifest.Cell, seed: int, seconds: float, trace: bool,
         shutil.rmtree(work, ignore_errors=True)
 
 
-def _report(positions, setup_s, warm, window, traced, summary, record):
+def _report(positions, setup_s, warm, window, counted, traced, summary,
+            record):
     """What the run saw, on standard error, before the compared numbers."""
     w = sys.stderr.write
     w(f"[portbench] positions {positions}, setup_s {setup_s}, warm-up "
       f"sample {warm['wall']} s\n")
-    for i, s in enumerate(window + traced):
-        kind = "window" if i < len(window) else "traced"
-        w(f"[portbench] {kind} sample {i}: wall {s['wall']} s, "
-          f"launches {s['launches']}, queries {s['queries']}, "
-          f"seconds {json.dumps(s['seconds'])}\n")
+    for kind, samples in (("window", window), ("counted", counted),
+                          ("traced", traced)):
+        for i, s in enumerate(samples):
+            w(f"[portbench] {kind} sample {i}: wall {s['wall']} s, "
+              f"launches {s['launches']}, queries {s['queries']}, "
+              f"seconds {json.dumps(s['seconds'])}\n")
     w(f"[portbench] window {record['window']}, peak "
       f"{record['peak_bytes']} B\n")
     if summary is not None:

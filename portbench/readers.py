@@ -7,7 +7,9 @@ window completed), ``peak_bytes``, ``samples`` (each window sample's
 ``seconds`` by phase, as the pipeline returned them, and its ``launches``
 and ``queries`` of the rank kernel), ``device`` (``kind``), ``peaks`` (the
 table ``peaks.json``) and ``trace`` (None, or ``tracing.summarize``'s
-record of the traced samples with ``rank_bytes`` and ``rank_launches``).
+record of the traced samples with ``rank_launches`` and ``rank_bytes``,
+the counting sample's bytes once per traced sample, or None where their
+launches or queries differ).
 A reader that finds nothing to read returns None, and the metric is left
 out of the result line.
 """

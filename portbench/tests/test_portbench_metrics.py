@@ -50,28 +50,33 @@ def test_idle_from_union_of_overlapping_intervals():
     events = [
         _ev(tracing.SAMPLE, "user_annotation", 0, 100),
         _ev("node_phase", "user_annotation", 0, 60),
-        _ev("cluster", "user_annotation", 60, 40),
+        _ev("node_phase.wait", "user_annotation", 50, 8),  # inside it
+        _ev("cluster", "user_annotation", 60, 30),
         _ev("k1", "kernel", 10, 20),   # 10-30
         _ev("k2", "kernel", 20, 20),   # 20-40, overlaps k1
         _ev("rank_decode_kernel", "kernel", 70, 10),  # 70-80
         _ev("Memcpy HtoD", "gpu_memcpy", 95, 10),  # clipped to 95-100
         _ev("cpu op", "cpu_op", 0, 100),
     ]
-    s = tracing.summarize(events, ("node_phase", "cluster"),
-                          ("rank_decode",))
+    s = tracing.summarize(events, ("rank_decode",))
     assert s["window_s"] == pytest.approx(100e-6)
     assert s["busy_s"] == pytest.approx(45e-6)  # 10-40, 70-80, 95-100
     assert s["kernel_s"]["rank_decode"] == pytest.approx(10e-6)
+    # each gap by the innermost span that holds its middle: 0-10, 40-70
+    # (middle 55, in the wait), 80-95 (middle 87.5, in the cluster phase)
     gaps = dict((round(v * 1e6), k) for k, v in s["idle_gaps"])
-    assert gaps == {10: "node_phase", 30: "node_phase", 15: "cluster"}
+    assert gaps == {10: "node_phase", 30: "node_phase.wait", 15: "cluster"}
+    assert s["idle_by_span"] == pytest.approx(
+        {"node_phase": 10e-6, "node_phase.wait": 30e-6, "cluster": 15e-6})
     rec = _record(trace=s)
     assert manifest.load_reader("device.idle_pct")(rec) == pytest.approx(55)
 
 
 def test_trace_without_device_or_samples_reads_nothing():
-    assert tracing.summarize([_ev("x", "cpu_op", 0, 5)], ()) is None
+    assert tracing.summarize([_ev("x", "cpu_op", 0, 5)]) is None
     s = tracing.summarize([_ev(tracing.SAMPLE, "user_annotation", 0, 5)],
-                          (), ("rank_decode",))
+                          ("rank_decode",))
+    assert s["idle_gaps"] == [[tracing.OUTSIDE, pytest.approx(5e-6)]]
     rec = _record(trace=s)
     assert manifest.load_reader("device.idle_pct")(rec) is None
     assert manifest.load_reader("rank_decode_roofline")(rec) is None
@@ -84,6 +89,7 @@ def test_rank_decode_bytes_of_a_known_launch():
     got = harness.ROW_BYTES * torch.unique(rows).numel() + \
         harness.QUERY_BYTES * rows.numel()
     assert got == 64 * 3 + 40 * 6
+    assert harness.launch_bytes([(3, 6)]) == got
     t = {"kernel_s": {"rank_decode": 1e-6}, "rank_bytes": 1.675e6,
          "device_events": 1, "busy_s": 1, "window_s": 2}
     # 1.675 MB at 3.35 TB/s is 0.5 us: half of the 1 us the kernel took

@@ -9,8 +9,10 @@ durations, so work that overlaps (mode 3's DA-side worker) counts once.
 
 The window is the span of the ``SAMPLE`` marks the harness puts around each
 traced sample. An idle gap is named by what the host was doing in it: the
-innermost program phase mark that holds the gap's middle, else
-``between phases``.
+innermost (the shortest) of the program's spans (every ``record_function``
+mark but ``SAMPLE``: ``index``, ``index.pack``, ``node_phase.wait``, ...)
+that holds the gap's middle, as ``tracetop.py`` names it, else
+``OUTSIDE``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from collections import defaultdict
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SAMPLE = "portbench.sample"
+OUTSIDE = "(no span)"
 TOP = 10
 
 
@@ -56,11 +59,28 @@ def gaps(busy: list[tuple[float, float]], lo: float,
     return [(a, b) for a, b in out if b > a]
 
 
-def summarize(events: list, phases: tuple[str, ...],
-              kernels: tuple[str, ...] = ()) -> dict | None:
+def innermost(spans: list, times: list) -> list:
+    """For each of ``times``, the shortest of ``spans`` ((start, end,
+    name)) that holds it, or None: one sweep over both in time order
+    (``tracetop.py``'s)."""
+    spans = sorted(spans)
+    out: list = [None] * len(times)
+    active, i = [], 0
+    for k in sorted(range(len(times)), key=times.__getitem__):
+        t = times[k]
+        while i < len(spans) and spans[i][0] <= t:
+            active.append(spans[i])
+            i += 1
+        active = [s for s in active if s[1] >= t]
+        if active:
+            out[k] = min(active, key=lambda s: s[1] - s[0])
+    return out
+
+
+def summarize(events: list, kernels: tuple[str, ...] = ()) -> dict | None:
     """Times in seconds over the traced window: ``window_s``, ``busy_s``
     (the union of device intervals inside it), ``device_ops`` and
-    ``idle_gaps`` (the breakdown's lists), ``idle_by_phase`` and
+    ``idle_gaps`` (the breakdown's lists), ``idle_by_span`` and
     ``kernel_s`` (summed device time of events whose name holds each of
     ``kernels``). None when the trace has no sample mark."""
     spans = [e for e in events if e.get("ph") == "X"]
@@ -91,19 +111,17 @@ def summarize(events: list, phases: tuple[str, ...],
         device.append((a, b))
     busy = union(device)
 
-    phase_marks = sorted(
-        ((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
-          e["name"]) for e in marks if e.get("name") in phases))
+    program_spans = [
+        (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"])
+        for e in marks if e.get("name") != SAMPLE]
     idle = gaps(busy, lo, hi)
+    held = innermost(program_spans, [(a + b) / 2 for a, b in idle])
     named = []
-    idle_by_phase: dict[str, float] = defaultdict(float)
-    for a, b in idle:
-        mid = (a + b) / 2
-        inside = [(pb - pa, name) for pa, pb, name in phase_marks
-                  if pa <= mid <= pb]
-        name = min(inside)[1] if inside else "between phases"
+    idle_by_span: dict[str, float] = defaultdict(float)
+    for (a, b), span in zip(idle, held):
+        name = span[2] if span else OUTSIDE
         named.append((name, (b - a) / 1e6))
-        idle_by_phase[name] += (b - a) / 1e6
+        idle_by_span[name] += (b - a) / 1e6
 
     ops = sorted(per_op.items(), key=lambda kv: -kv[1])[:TOP]
     return {
@@ -114,6 +132,6 @@ def summarize(events: list, phases: tuple[str, ...],
         "device_ops": [[name, us / 1e6] for name, us in ops],
         "idle_gaps": [[name, s] for name, s in
                       sorted(named, key=lambda x: -x[1])[:TOP]],
-        "idle_by_phase": dict(idle_by_phase),
+        "idle_by_span": dict(idle_by_span),
         "kernel_s": {k: us / 1e6 for k, us in kernel_us.items()},
     }
