@@ -31,7 +31,10 @@ run, ``utils/profile.py``, read by ``tools/tracetop.py``) and
 ``traverse._run_phase``).
 
 A run's last line, ``[timing] spans {...}``, is its ``stats["seconds"]``
-as JSON: every span of the run (``utils/profile.py``), with no switch.
+as JSON: every span of the run (``utils/profile.py``), with no switch. The
+line before it, ``[emit] counts {...}``, is its ``stats["emit_counts"]``:
+what each of the emission's filters kept or dropped
+(``models/emit_vec.py``).
 """
 
 from __future__ import annotations
@@ -185,6 +188,7 @@ def main(argv=None, *, device="cuda") -> int:
                                 **ckpt)
         else:
             stats = run(cfg, device=device, **ckpt)
+        print(f"[emit] counts {json.dumps(stats['emit_counts'])}")
         print(f"[timing] spans {json.dumps(stats['seconds'])}")
     except ValueError as e:
         # e.g. forbidden character in the input BWT — the reference prints the

@@ -11,9 +11,11 @@ consensus and right-context walks (call.py), and host emission
 run returns ``stats["seconds"]``, its spans (``utils/profile.py``): the
 wall time of each phase, each ended by a device synchronise, and of the
 parts timed inside it. ``EBWT_PROFILE=<dir>`` traces each run, each span
-marked.
+marked. ``stats["emit_counts"]`` holds what the emission's filters kept
+and dropped (``emit_vec.SINGLE_COUNTS``, ``emit_vec.PAIR_COUNTS``; all
+zero where no cluster reached emission).
 
-The parts, each placed here at its call site:
+The parts, each placed at its call site:
 
 * ``index.pack``: reading the eBWT file(s) and packing them on the host;
   ``index.upload``: the upload and the phase's closing synchronise (the
@@ -22,7 +24,10 @@ The parts, each placed here at its call site:
 * ``cluster.next_set``: the anchor table's build (``ops/scan.py``), on
   the device's clock.
 * ``call_emit.walks``: the calling walks through their last device-to-host
-  copy; ``call_emit.write``: the host's emission and the ``.snp`` write;
+  copy; ``call_emit.write``: the host's emission and the ``.snp`` write,
+  and within it ``emit_vec.py``'s ``call_emit.align`` (its vectorized
+  half: contexts ordered, alignments, filters) and ``call_emit.format``
+  (the per-record loop and the write);
   ``call_emit.da_rank``: the document array's rank (modes 2 and 3), on the
   device's clock.
 * ``node_phase.wait`` is the traversal's (``traverse.py``).
@@ -43,7 +48,7 @@ from ..ops import bits, packing, rank, scan
 from ..utils import dna
 from ..utils.config import Config
 from ..utils.profile import profiled, span, spent
-from . import call, cluster, emit, emit_vec, traverse
+from . import call, cluster, emit_vec, traverse
 from .fm_index import FMIndex
 
 MAX_CLUST_LEN = cluster.MAX_CLUST_LEN
@@ -186,13 +191,10 @@ def call_and_emit_single(cl: cluster.Clusters, cfg: Config, dev, *,
     e)``, ``consensus(b, e)``, ``anchor(b, e)`` (the right-context anchor
     and whether it was found) and ``dna(pos, found)``."""
     B = cl.n_clusters
+    none = emit_vec.nothing_emitted(emit_vec.SINGLE_COUNTS)
     with open(cfg.output, "w") as out_f:
-        writer = emit.SnpWriter(
-            out_f, complexity=cfg.complexity, max_snvs=cfg.max_snvs,
-            mcov_out=cfg.mcov_out, max_gap=cfg.max_gap,
-        )
         if B == 0:
-            return {"events": 0, "cluster_nr": writer.cluster_nr}
+            return none
 
         with span("call_emit.walks"):
             # cheap filter first, on the device; only the B survivor
@@ -208,7 +210,7 @@ def call_and_emit_single(cl: cluster.Clusters, cfg: Config, dev, *,
             passes = passes_d.cpu().numpy()
             sel = np.flatnonzero(passes)
             if len(sel) == 0:
-                return {"events": 0, "cluster_nr": 1}
+                return none
 
             sel_d = torch.from_numpy(sel).to(dev)
             sb = cl.begins[sel_d]
@@ -343,9 +345,10 @@ def call_and_emit_pair_mode2(cl: cluster.Clusters, cfg: Config, dev, *,
     anchor table, and a pair of walks, one per index, in ``range_counts``
     ((b, e) -> quirk, pure), ``consensus`` ((b, e)) and ``dna`` ((pos,
     found))."""
+    none = emit_vec.nothing_emitted(emit_vec.PAIR_COUNTS)
     with open(cfg.output, "w") as out_f:
         if cl.n_clusters == 0:
-            return {"events": 0, "cluster_nr": 1}
+            return none
         with span("call_emit.walks"):
             begins, ends = cl.begins, cl.ends
             # each sample's sub-range of a merged range, by DA rank (the
@@ -361,7 +364,7 @@ def call_and_emit_pair_mode2(cl: cluster.Clusters, cfg: Config, dev, *,
             passes = _pair_passes(quirk0, quirk1, cfg).cpu().numpy()
             sel = np.flatnonzero(passes)
             if len(sel) == 0:
-                return {"events": 0, "cluster_nr": 1}
+                return none
 
             sel_d = torch.from_numpy(sel).to(dev)
             ctx0, support0, full0 = consensus[0](b0[sel_d], e0[sel_d])
@@ -499,9 +502,10 @@ def call_and_emit_pair_mode3(cl: cluster.Clusters, cfg: Config, dev, *,
     pure), ``da_rank1(i)`` over the document array, and ``consensus(b,
     e)``, ``anchor(b, e)`` and ``dna(pos, found)`` over the merged
     index."""
+    none = emit_vec.nothing_emitted(emit_vec.PAIR_COUNTS)
     with open(cfg.output, "w") as out_f:
         if cl.n_clusters == 0:
-            return {"events": 0, "cluster_nr": 1}
+            return none
         with span("call_emit.walks"):
             begins, ends = cl.begins, cl.ends
             # each sample's counts with the TERM->A quirk applied per side
@@ -519,7 +523,7 @@ def call_and_emit_pair_mode3(cl: cluster.Clusters, cfg: Config, dev, *,
             passes = _pair_passes(quirk0, quirk1, cfg).cpu().numpy()
             sel = np.flatnonzero(passes)
             if len(sel) == 0:
-                return {"events": 0, "cluster_nr": 1}
+                return none
 
             # both samples' left contexts come from the merged index
             # (cpp:1057-1058), so they share the consensus and its support

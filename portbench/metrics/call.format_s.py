@@ -1,0 +1,11 @@
+"""Seconds of the emission's per-record loop, the join of its strings and
+the ``.snp`` write (the span ``call_emit.format``, inside
+``call_emit.write``) per sample, from the ``stats["seconds"]`` the
+pipeline returns, over the window's samples; None where the program has
+no such span."""
+
+from portbench.readers import phase_mean
+
+
+def read(run):
+    return phase_mean(run, "call_emit.format")

@@ -27,7 +27,8 @@ K, K_RIGHT = 8, 12
 _LINE = re.compile(r"\[progress\] processed (\d+) items, (\d+) pending")
 _PHASES = {"index", "leaf_phase", "node_phase", "cluster", "call_emit"}
 _PARTS = {"index.pack", "index.upload", "node_phase.wait", "cluster.next_set",
-          "call_emit.walks", "call_emit.write"}
+          "call_emit.walks", "call_emit.write",
+          "call_emit.align", "call_emit.format"}
 
 
 @pytest.fixture(scope="module")

@@ -154,7 +154,8 @@ def test_mode2_sharded_snp_matches_jax_and_single_device(data, S):
         assert st[k] == data["stats"][k], k
     assert set(st["seconds"]) == {"index", "leaf_phase", "node_phase",
                                   "cluster", "call_emit", "call_emit.walks",
-                                  "call_emit.write", "call_emit.da_rank"}
+                                  "call_emit.write", "call_emit.da_rank",
+                                  "call_emit.align", "call_emit.format"}
 
 
 @pytest.mark.parametrize("S,small", [(8, 1), (3, 2)])

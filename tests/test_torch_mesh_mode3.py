@@ -151,5 +151,6 @@ def test_mode3_sharded_snp_matches_jax_and_single_device(data, S):
     assert set(st["seconds"]) == {"index", "leaf_phase", "node_phase",
                                   "da_wait", "cluster", "call_emit",
                                   "call_emit.walks", "call_emit.write",
+                                  "call_emit.align", "call_emit.format",
                                   "call_emit.da_rank"}
     assert st["leaf_steps"] > 0 and st["node_steps"] > 0

@@ -62,6 +62,7 @@ def test_mode2_byte_identical_to_jax(pair, extra):
                                    "node_phase.wait", "cluster",
                                    "cluster.next_set", "call_emit",
                                    "call_emit.walks", "call_emit.write",
+                                   "call_emit.align", "call_emit.format",
                                    "call_emit.da_rank"}
 
 

@@ -67,6 +67,7 @@ def test_mode3_byte_identical_to_jax(merged, extra):
                                    "da_wait", "cluster", "cluster.next_set",
                                    "call_emit",
                                    "call_emit.walks", "call_emit.write",
+                                   "call_emit.align", "call_emit.format",
                                    "call_emit.da_rank"}
 
 

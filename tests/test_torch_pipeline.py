@@ -59,7 +59,8 @@ def test_verify_dataset_byte_identical(datasets):
                                    "leaf_phase", "node_phase",
                                    "node_phase.wait", "cluster",
                                    "cluster.next_set", "call_emit",
-                                   "call_emit.walks", "call_emit.write"}
+                                   "call_emit.walks", "call_emit.write",
+                                   "call_emit.align", "call_emit.format"}
 
 
 @pytest.mark.parametrize("extra", FLAG_SETS)

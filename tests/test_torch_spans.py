@@ -2,7 +2,8 @@
 CPU: nested spans, repeats that add up, a worker thread's span in its run's
 record, the host-time fallback of a device span; and in each run mode,
 the parts of ``index`` and ``call_emit`` within their phase, and the CLI's
-``[timing] spans`` line holding the run's record."""
+``[timing] spans`` line holding the run's record, after its ``[emit]
+counts`` line."""
 
 import contextvars
 import json
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from ebwt2indel_torch import cli
-from ebwt2indel_torch.models import pipeline
+from ebwt2indel_torch.models import emit_vec, pipeline
 from ebwt2indel_torch.tools import ebwt, simulate
 from ebwt2indel_torch.utils import profile
 from ebwt2indel_torch.utils.config import Config
@@ -130,7 +131,8 @@ _MODES = {
 }
 _COMMON = {"index", "index.pack", "index.upload", "leaf_phase", "node_phase",
            "node_phase.wait", "cluster", "cluster.next_set", "call_emit",
-           "call_emit.walks", "call_emit.write"}
+           "call_emit.walks", "call_emit.write",
+           "call_emit.align", "call_emit.format"}
 
 
 @pytest.mark.parametrize("mode", [1, 2, 3])
@@ -150,6 +152,8 @@ def test_parts_within_their_phase(inputs, mode):
     assert sec["index.pack"] + sec["index.upload"] <= sec["index"]
     assert sec["call_emit.walks"] + sec["call_emit.write"] <= \
         sec["call_emit"]
+    assert sec["call_emit.align"] + sec["call_emit.format"] <= \
+        sec["call_emit.write"]
     assert sec["node_phase.wait"] <= sec["node_phase"]
     assert sec["cluster.next_set"] <= sec["cluster"]
     if "call_emit.da_rank" in sec:
@@ -160,7 +164,10 @@ def test_cli_logs_the_runs_spans(inputs, capsys):
     out = str(inputs / "cli.snp")
     assert cli.main(["-1", str(inputs / "r.ebwt"), "-o", out],
                     device="cpu") == 0
-    last = capsys.readouterr().out.rstrip("\n").splitlines()[-1]
+    counts, last = capsys.readouterr().out.rstrip("\n").splitlines()[-2:]
     assert last.startswith("[timing] spans {")
     sec = json.loads(last[len("[timing] spans "):])
     assert set(sec) == _COMMON and all(v >= 0 for v in sec.values())
+    assert counts.startswith("[emit] counts {")
+    got = json.loads(counts[len("[emit] counts "):])
+    assert tuple(got) == emit_vec.SINGLE_COUNTS and got["records"] > 0

@@ -62,7 +62,8 @@ def test_run_huge_report(tmp_path, extra, capsys):
     assert set(got["phase_seconds"]) == {
         "index", "index.pack", "index.upload", "leaf_phase", "node_phase",
         "node_phase.wait", "cluster", "cluster.next_set", "call_emit",
-        "call_emit.walks", "call_emit.write"}
+        "call_emit.walks", "call_emit.write",
+        "call_emit.align", "call_emit.format"}
     assert got["peak_bytes"] is None
     assert got["positions"] == n and got["unit"] == "pos/s"
     assert got["cold_seconds"] > 0 and got["warm_seconds"] > 0
