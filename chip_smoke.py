@@ -25,6 +25,13 @@ Phases, each of which must pass (the script exits 1 otherwise):
    byte bound and the ``torch.cummin`` call the plain version makes, its
    launches those of phase 4's run (each full-size and mesh run below logs
    its ``next_set`` launches beside ``rank_decode``'s and must launch both);
+   and mode 1's emission kernel (``csrc/emit_single.cu``) over the
+   emission's inputs of phase 4's run and of a mode-1 run on the hivar
+   cell's recipe (``portbench/configs/ecoli25x-hivar-single.json``, built
+   into ``data/hivar/``): the same text and counts as its plain version,
+   timed at the hivar shapes beside its byte bound and the plain version's
+   wall; its launches (``emit_single``) are logged with the others, once
+   in each mode-1 run and never in modes 2 and 3;
 7. three more full-size CUDA runs for the spread of the wall and phase times
    (median, min, max), then one with ``EBWT_PROFILE`` set, whose trace the
    port's ``tracetop`` reads: device time by kernel name and by phase, and
@@ -169,6 +176,11 @@ PACKED_MAX_BYTES_PER_POS = 12
 # the past-2^31 witness: phase 4's eBWT with every read repeated 19 times
 KFOLD = 19
 KFOLD_N = 2_206_844_243
+# the emission kernel's timing input: the benchmark's hivar recipe
+HIVAR_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "portbench", "configs",
+                            "ecoli25x-hivar-single.json")
+HIVAR_SEED = 0x51D7
 # floors of the 116M evaluation loop, well under the TPU-era record on the
 # same recipe (VALIDATION_r05.json: 0.9555 / 0.9859 / 1.0 at 2.575G)
 VALIDATE_MIN_SENSITIVITY = 0.85
@@ -354,20 +366,22 @@ def _cli_run(args: list, cli_log: str) -> dict:
     import torch
 
     from ebwt2indel_torch import cli
-    from ebwt2indel_torch.ops import rank_cuda, scan_cuda
+    from ebwt2indel_torch.ops import emit_cuda, rank_cuda, scan_cuda
 
     os.makedirs(os.path.dirname(cli_log), exist_ok=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rank_cuda.reset_launches()
     scan_cuda.reset_launches()
+    emit_cuda.reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(args, device="cuda")
     torch.cuda.synchronize()
     r = {"wall": time.perf_counter() - t0, "text": buf.getvalue(),
-         "launches": {**rank_cuda.LAUNCHES, **scan_cuda.LAUNCHES},
+         "launches": {**rank_cuda.LAUNCHES, **scan_cuda.LAUNCHES,
+                      **emit_cuda.LAUNCHES},
          "queries": dict(rank_cuda.QUERIES),
          "peak": torch.cuda.max_memory_allocated()}
     with open(cli_log, "w") as f:
@@ -425,9 +439,10 @@ def phase_full(results: dict, data_dir: str, log_dir: str) -> None:
         f"{json.dumps(r['queries'])}")
     if st["n"] != n or not (0 < st["lcp_values"] <= n) or st["events"] <= 0:
         raise AssertionError("implausible full-size result")
-    if launches["rank_decode"] <= 0 or launches["next_set"] <= 0:
-        raise AssertionError(f"a kernel never launched on the main path: "
-                             f"{launches}")
+    if launches["rank_decode"] <= 0 or launches["next_set"] <= 0 or \
+            launches["emit_single"] != 1:
+        raise AssertionError(f"a kernel never launched on the main path, or "
+                             f"the emission not once: {launches}")
     results["launches"] = launches
     results["full_stats"] = st
     results["full_path"] = path
@@ -650,9 +665,10 @@ def phase_full_pair(results: dict, mode: int, data_dir: str,
     n = os.path.getsize(paths["merged.ebwt"])
     if n_total != n or not (0 < st["lcp_values"] <= n) or st["events"] <= 0:
         raise AssertionError(f"implausible full-size mode-{mode} result")
-    if launches["rank_decode"] <= 0 or launches["next_set"] <= 0:
-        raise AssertionError(f"a kernel never launched on mode {mode}: "
-                             f"{launches}")
+    if launches["rank_decode"] <= 0 or launches["next_set"] <= 0 or \
+            launches["emit_single"] != 0:
+        raise AssertionError(f"a kernel never launched on mode {mode}, or "
+                             f"mode 1's emission did: {launches}")
     results[f"mode{mode}"] = {"full_path": paths, "full_out": out, "n": n,
                               "full_wall": wall, "stats": st}
 
@@ -1762,6 +1778,108 @@ def phase_next_set_at_main_shape(results: dict) -> dict:
     }
 
 
+def _emission_inputs(path: str, out: str) -> tuple:
+    """Mode 1 on CUDA over ``path``: its emission's config and device
+    tensors, kept from the call of ``emit_vec.emit_single``."""
+    from ebwt2indel_torch.models import emit_vec
+
+    kept = []
+    entry = emit_vec.emit_single
+
+    def keep(out_f, cfg, *ts):
+        kept.append((cfg, [t.clone() for t in ts]))
+        return entry(out_f, cfg, *ts)
+
+    emit_vec.emit_single = keep
+    try:
+        run_mode1(path, out, "cuda")
+    finally:
+        emit_vec.emit_single = entry
+    return kept[0]
+
+
+def _emission_vs_plain(label: str, cfg, ts: list) -> dict:
+    """The emission on the card and its plain version on the CPU over the
+    same tensors: the same text and counts, and each one's wall time."""
+    import torch
+
+    from ebwt2indel_torch.models import emit_vec
+
+    walls = {}
+    for dev in ("cuda", "cpu"):
+        tensors = [t.to(dev) for t in ts]
+        torch.cuda.synchronize()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        got = emit_vec.emit_single(buf, cfg, *tensors)
+        walls[dev] = (time.perf_counter() - t0, buf.getvalue(), got)
+    (k_s, k_text, k_got), (p_s, p_text, p_got) = walls["cuda"], walls["cpu"]
+    if k_text != p_text or k_got != p_got:
+        raise AssertionError(f"emission kernel != plain at {label}: "
+                             f"{len(k_text)} / {len(p_text)} bytes, "
+                             f"{k_got} / {p_got}")
+    log(f"[emit] {label}: {ts[0].shape[0]} passing clusters, "
+        f"{k_got['events']} records, {len(k_text)} bytes, equal to plain; "
+        f"entry wall kernel {k_s * 1e3:.3f} ms, plain {p_s * 1e3:.3f} ms; "
+        f"counts {json.dumps(k_got['emit_counts'])}")
+    return {"text_bytes": len(k_text), "plain_s": p_s}
+
+
+def phase_emit_single(results: dict, data_dir: str) -> dict:
+    """Mode 1's emission kernel against its plain version over the
+    emission's inputs of the full-size run and of the hivar cell's recipe
+    (``portbench/configs/ecoli25x-hivar-single.json``), and timed at the
+    latter's shapes: its device time by CUDA events (the plan, the scan,
+    the counts' copy and the writer), its bound, and the plain version's
+    wall; its launches are those of phase 4's run."""
+    import torch
+
+    from ebwt2indel_torch.models import emit_vec
+    from ebwt2indel_torch.ops import emit_cuda
+    from portbench import gen
+
+    cfg, ts = _emission_inputs(results["full_path"],
+                               os.path.join(data_dir, "emit_116M.snp"))
+    _emission_vs_plain("116M", cfg, ts)
+    hivar_dir = os.path.join(data_dir, "hivar")
+    path = os.path.join(hivar_dir, "reads.ebwt")
+    if not os.path.isfile(path):
+        with open(HIVAR_CONFIG) as f:
+            recipe = json.load(f)
+        os.makedirs(hivar_dir, exist_ok=True)
+        r1, r2 = gen.make_reads(recipe, HIVAR_SEED, "cuda")
+        gen.write_inputs({"reads"}, r1, r2, hivar_dir)
+        del r1, r2
+    cfg, ts = _emission_inputs(path, os.path.join(hivar_dir, "reads.snp"))
+    r = _emission_vs_plain(f"hivar recipe ({os.path.getsize(path)} "
+                           "positions)", cfg, ts)
+    ms = time_ms(lambda: emit_cuda.emit_single(cfg, *ts), 20)
+
+    def entry():
+        emit_vec.emit_single(io.StringIO(), cfg, *ts)
+
+    entry_ms = time_ms(entry, 20)
+    B, L, R = ts[0].shape[0], ts[4].shape[-1], ts[5].shape[-1]
+    # each input byte read once (found, freq, full, support, contexts,
+    # right contexts, lengths) and the text written once
+    n_bytes = B * (1 + 4 + 4 + 32 + 4 * L + R + 8) + r["text_bytes"]
+    bound_s = n_bytes / HBM_BYTES_PER_S
+    log(f"[kernel] emit_single at the hivar recipe: B={B}, k_left {L}: "
+        f"kernels through the counts' copy {ms:.4f} ms, the whole entry "
+        f"(and the text's copy, decode and write) {entry_ms:.4f} ms, plain "
+        f"{r['plain_s'] * 1e3:.4f} ms, bound {bound_s * 1e3:.4f} ms "
+        f"({n_bytes} bytes)")
+    torch.cuda.synchronize()
+    return {
+        "name": "emit_single", "route": "cuda",
+        "source": "ebwt2indel_torch/csrc/emit_single.cu",
+        "replaces": None, "launches": results["launches"]["emit_single"],
+        "max_abs_err": 0, "ms": ms, "entry_ms": entry_ms,
+        "plain_ms": r["plain_s"] * 1e3, "bound_ms": bound_s * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-dir", default=os.path.join("data", "chip_smoke"))
@@ -1814,7 +1932,10 @@ def main() -> int:
             for name, fn in (("kernel_at_main_shape",
                               phase_kernel_at_main_shape),
                              ("next_set_at_main_shape",
-                              phase_next_set_at_main_shape)):
+                              phase_next_set_at_main_shape),
+                             ("emit_single_at_main_shape",
+                              functools.partial(phase_emit_single,
+                                                data_dir=data_dir))):
                 k = phase(name, fn, results)
                 if k:
                     kernels.append(k)

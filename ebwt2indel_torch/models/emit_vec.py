@@ -1,16 +1,23 @@
-"""Vectorized host-side emission for mode 1 (genotyping).
+"""The emission: the filters, the alignments and the ``.snp`` records of
+the clusters that the calling walks reached.
 
-Numpy reformulation of to_file single (ebwt2InDel.cpp:1254-1330) +
-distance/dH (157-240): all candidate-pair alignments are computed as batched
-array comparisons; Python-level work remains only for the final record
-strings. Byte-identical output to emit.SnpWriter.write_single_cluster driven
-in cluster order (enforced by the golden parity tests).
+Mode 1 (genotyping; to_file single, ebwt2InDel.cpp:1254-1330, and
+distance/dH, 157-240) enters at ``emit_single``, which dispatches on the
+device of the walks' tensors: a CUDA tensor runs the hand-written kernel
+(``ops/emit_cuda.py``, ``csrc/emit_single.cu``), which aligns, filters and
+writes every record on the card, and a CPU tensor runs
+``emit_single_plain``, the numpy version (all candidate-pair alignments as
+batched array comparisons, Python only for the record strings). There is no
+fallback between them. Modes 2 and 3 (to_file pair) run ``emit_pair`` on
+the host. Every path's bytes equal emit.SnpWriter's driven in cluster order
+(enforced by the golden parity tests).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..utils import dna
 from ..utils.profile import span
 from . import emit
 
@@ -88,14 +95,54 @@ def _has_run_vec(seq_ascii: np.ndarray, seqlen: np.ndarray, k: int):
     return out
 
 
-def emit_single(out_f, cfg, found, passes, freq, full, support,
-                ctx_ascii, seq_ascii, seqlen) -> dict:
-    """Vectorized equivalent of looping write_single_cluster over clusters in
-    position order. Returns {'events', 'cluster_nr', 'emit_counts'}, the
-    last the counts of ``SINGLE_COUNTS``. The span ``call_emit.align``
-    times the vectorized half: the contexts ordered per cluster, every
-    ``batch_distance`` pass and the filters; ``call_emit.format`` the
-    per-record loop, the join and the write.
+def decode_rows(codes: np.ndarray, term: int) -> np.ndarray:
+    """(..., L) int8 codes -> ASCII bytes for lazy per-row slicing."""
+    return dna.decode_table(term)[codes.astype(np.uint8)]
+
+
+def emit_single(out_f, cfg, found, freq, full, support, ctx, seq,
+                seqlen) -> dict:
+    """Mode 1's emission over the walks' tensors, all on one device, for
+    the B clusters that passed the base-count filter: ``found`` (B,),
+    ``freq`` and ``full`` (B, 4) flags, ``support`` (B, 4), the left
+    contexts ``ctx`` (B, 4, L) and right contexts ``seq`` (B, R) as codes,
+    ``seqlen`` (B,). Writes the records to ``out_f`` and returns {'events',
+    'cluster_nr', 'emit_counts'}, the last the counts of ``SINGLE_COUNTS``.
+
+    On a CUDA device the span ``call_emit.align`` times the kernels through
+    the copy of their counts, and ``call_emit.format`` the copy of the
+    records' text, its decode and the write. On the CPU the tensors go to
+    ``emit_single_plain``, whose spans time its two halves."""
+    if found.device.type == "cuda":
+        from ..ops import emit_cuda
+
+        with span("call_emit.align"):
+            text, counts = emit_cuda.emit_single(cfg, found, freq, full,
+                                                 support, ctx, seq, seqlen)
+        with span("call_emit.format"):
+            out_f.write(text.cpu().numpy().tobytes().decode("ascii"))
+        counts = dict(zip(SINGLE_COUNTS, counts))
+        return {"events": counts["records"],
+                "cluster_nr": 1 + counts["clusters"], "emit_counts": counts}
+    if found.device.type == "cpu":
+        found, freq, full, support, ctx, seq, seqlen = (
+            t.numpy() for t in (found, freq, full, support, ctx, seq,
+                                seqlen))
+        return emit_single_plain(
+            out_f, cfg, found, np.ones(len(found), dtype=bool), freq, full,
+            support, decode_rows(ctx, cfg.term), decode_rows(seq, cfg.term),
+            seqlen)
+    raise ValueError(f"emit_single: tensors on {found.device}")
+
+
+def emit_single_plain(out_f, cfg, found, passes, freq, full, support,
+                      ctx_ascii, seq_ascii, seqlen) -> dict:
+    """The plain version: the vectorized equivalent of looping
+    write_single_cluster over clusters in position order, over numpy arrays
+    (the contexts in ASCII). Returns as ``emit_single``. The span
+    ``call_emit.align`` times the vectorized half: the contexts ordered per
+    cluster, every ``batch_distance`` pass and the filters;
+    ``call_emit.format`` the per-record loop, the join and the write.
     """
     B = len(found)
     mcov, max_snvs, max_gap, complexity = (
@@ -192,7 +239,7 @@ def emit_pair(out_f, cfg, found, freq0, full0, freq1, full1,
     supports reach mcov_out. cluster_nr advances only for clusters with at
     least one accepted pair. Returns {'events', 'cluster_nr',
     'emit_counts'}, the last the counts of ``PAIR_COUNTS``; its spans as
-    ``emit_single``'s."""
+    ``emit_single_plain``'s."""
     S = len(found)
     mcov, max_snvs, max_gap, complexity = (
         cfg.mcov_out, cfg.max_snvs, cfg.max_gap, cfg.complexity,

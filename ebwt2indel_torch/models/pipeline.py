@@ -6,11 +6,13 @@ merged eBWT and its document array; cpp:1471-1579).
 
 Phases: pack and upload the index (fm_index.py), the leaf then node
 wavefront (traverse.py), cluster detection (cluster.py), the filter,
-consensus and right-context walks (call.py), and host emission
-(emit_vec.py). The log lines are the JAX package's, plus timing lines; each
-run returns ``stats["seconds"]``, its spans (``utils/profile.py``): the
-wall time of each phase, each ended by a device synchronise, and of the
-parts timed inside it. ``EBWT_PROFILE=<dir>`` traces each run, each span
+consensus and right-context walks (call.py), and emission (emit_vec.py):
+mode 1's on the device that holds the walks' results (a CUDA kernel on the
+card, numpy on the CPU), modes 2 and 3's on the host. The log lines are
+the JAX package's, plus timing lines; each run returns
+``stats["seconds"]``, its spans (``utils/profile.py``): the wall time of
+each phase, each ended by a device synchronise, and of the parts timed
+inside it. ``EBWT_PROFILE=<dir>`` traces each run, each span
 marked. ``stats["emit_counts"]`` holds what the emission's filters kept
 and dropped (``emit_vec.SINGLE_COUNTS``, ``emit_vec.PAIR_COUNTS``; all
 zero where no cluster reached emission).
@@ -23,11 +25,15 @@ The parts, each placed at its call site:
   which runs beside phases 1-3.
 * ``cluster.next_set``: the anchor table's build (``ops/scan.py``), on
   the device's clock.
-* ``call_emit.walks``: the calling walks through their last device-to-host
-  copy; ``call_emit.write``: the host's emission and the ``.snp`` write,
-  and within it ``emit_vec.py``'s ``call_emit.align`` (its vectorized
-  half: contexts ordered, alignments, filters) and ``call_emit.format``
-  (the per-record loop and the write);
+* ``call_emit.walks``: the calling walks, through a device synchronise
+  in mode 1 and through their last device-to-host copy in modes 2 and 3;
+  ``call_emit.write``: the emission and the ``.snp`` write, and within it
+  ``emit_vec.py``'s ``call_emit.align`` and ``call_emit.format``. In mode
+  1 on the card these are the emission's kernels through the copy of
+  their counts, and the copy of the records' text, its decode and the
+  write; on the CPU, and in modes 2 and 3, the host's vectorized half
+  (contexts ordered, alignments, filters) and its per-record loop and the
+  write;
   ``call_emit.da_rank``: the document array's rank (modes 2 and 3), on the
   device's clock.
 * ``node_phase.wait`` is the traversal's (``traverse.py``).
@@ -45,7 +51,6 @@ import torch
 
 from .. import device as device_mod
 from ..ops import bits, packing, rank, scan
-from ..utils import dna
 from ..utils.config import Config
 from ..utils.profile import profiled, span, spent
 from . import call, cluster, emit_vec, traverse
@@ -71,11 +76,6 @@ def histogram_str(hist: np.ndarray) -> str:
 
 def print_histogram(hist: np.ndarray, log=_log):
     log(histogram_str(hist))
-
-
-def _decode_rows(codes: np.ndarray, term: int):
-    """(..., L) int8 codes -> ASCII bytes for lazy per-row slicing."""
-    return dna.decode_table(term)[codes.astype(np.uint8)]
 
 
 def _anchor_and_clusters(res: traverse.TraversalResult, n: int,
@@ -218,14 +218,14 @@ def call_and_emit_single(cl: cluster.Clusters, cfg: Config, dev, *,
             ctx, support, full = consensus(sb, se)
             pos, found = anchor(sb, se)
             seq, seqlen = dna(pos, found)
-            found, freq, full, support, ctx, seq, seqlen = _to_host(
-                found, freq_d[sel_d], full, support, ctx, seq, seqlen)
+            freq = freq_d[sel_d]
+            # the walks' device time stays in this span
+            device_mod.synchronize(dev)
 
+        # the emission runs where the walks' results lie (emit_vec.py)
         with span("call_emit.write"):
-            return emit_vec.emit_single(
-                out_f, cfg, found, passes[sel], freq, full, support,
-                _decode_rows(ctx, cfg.term), _decode_rows(seq, cfg.term),
-                seqlen)
+            return emit_vec.emit_single(out_f, cfg, found, freq, full,
+                                        support, ctx, seq, seqlen)
 
 
 def _to_host(*tensors) -> list[np.ndarray]:
@@ -390,9 +390,9 @@ def call_and_emit_pair_mode2(cl: cluster.Clusters, cfg: Config, dev, *,
         with span("call_emit.write"):
             return emit_vec.emit_pair(
                 out_f, cfg, found, freq0, full0, freq1, full1, support0,
-                support1, _decode_rows(ctx0, cfg.term),
-                _decode_rows(ctx1, cfg.term), _decode_rows(seq, cfg.term),
-                seqlen)
+                support1, emit_vec.decode_rows(ctx0, cfg.term),
+                emit_vec.decode_rows(ctx1, cfg.term),
+                emit_vec.decode_rows(seq, cfg.term), seqlen)
 
 
 def mask_da0(raw: np.ndarray, da: np.ndarray, term: int) -> np.ndarray:
@@ -539,8 +539,8 @@ def call_and_emit_pair_mode3(cl: cluster.Clusters, cfg: Config, dev, *,
 
         # every walked cluster passed _pair_passes (see mode 2)
         with span("call_emit.write"):
-            ctx_ascii = _decode_rows(ctx, cfg.term)
+            ctx_ascii = emit_vec.decode_rows(ctx, cfg.term)
             return emit_vec.emit_pair(
                 out_f, cfg, found, freq0, full, freq1, full, support,
-                support, ctx_ascii, ctx_ascii, _decode_rows(seq, cfg.term),
-                seqlen)
+                support, ctx_ascii, ctx_ascii,
+                emit_vec.decode_rows(seq, cfg.term), seqlen)

@@ -5,8 +5,9 @@ Every source under ``csrc/`` is compiled in one ``nvcc`` call for
 ``build/kernels/`` (gitignored) at first use, keyed by a hash of all the
 sources, and loaded with ctypes: a checkout's first run pays one build for
 every kernel. Nothing is built or imported from CUDA when this module is
-imported. The wrappers are ``ops/rank_cuda.py`` (``rank_decode``) and
-``ops/scan_cuda.py`` (``next_set``).
+imported. The wrappers are ``ops/rank_cuda.py`` (``rank_decode``),
+``ops/scan_cuda.py`` (``next_set``) and ``ops/emit_cuda.py``
+(``emit_single``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ SIGNATURES = {
     "rank_decode": (ctypes.c_int, [_PTR, _I64, _PTR, _PTR, _I64, _PTR]),
     "next_set": (ctypes.c_int, [_PTR, _I64, _I64, _I64, _PTR, _PTR, _PTR]),
     "next_set_scratch_len": (_I64, [_I64]),
+    "emit_single_plan": (ctypes.c_int, [_PTR, _PTR]),
+    "emit_single_write": (ctypes.c_int, [_PTR, _PTR, _PTR]),
 }
 
 _lock = threading.Lock()

@@ -9,8 +9,9 @@ and in mode 1 on the first seed the JAX package's too. Each run must have
 dropped a cluster or pair for its left contexts' distance (``-v``) and
 written a record whose alignment holds both mismatches and an indel, by
 the emission's counts (``[emit] counts``). Then ``emit_vec``'s counts on inputs built by
-hand, and ``emit_single`` and ``emit_pair`` against the port's
-record-by-record ``SnpWriter`` on random inputs."""
+hand, and ``emit_single_plain`` and ``emit_pair`` against the port's
+record-by-record ``SnpWriter`` on random inputs (the kernel's test,
+``test_torch_emit_cuda.py``, runs the same random inputs on the card)."""
 
 import io
 import json
@@ -25,6 +26,7 @@ from ebwt2indel_torch.models import emit, emit_vec
 from ebwt2indel_torch.utils.config import Config
 from portbench import gen
 from portbench.reference import calls
+from tests.test_torch_emit_cuda import BASES, near, single_trial
 from tests.test_torch_hosttools import two_torch_threads  # noqa: F401
 
 # portbench/configs/ecoli25x-hivar-single.json at 20 kbp
@@ -120,7 +122,7 @@ def test_emit_single_counts_by_hand():
     args = (np.ones(B, bool), np.ones(B, bool), freq, np.ones((B, 4), bool),
             support, ctx, seq, np.full(B, 8))
     buf = io.StringIO()
-    got = emit_vec.emit_single(buf, cfg, *args)
+    got = emit_vec.emit_single_plain(buf, cfg, *args)
     assert got["emit_counts"] == {
         "clusters": 6, "dropped_max_snvs": 1, "dropped_coverage": 1,
         "dropped_complexity": 1, "records": 6, "gapped": 2, "multi_snv": 1}
@@ -137,23 +139,6 @@ def test_emit_single_counts_by_hand():
                                if j == 2 else "ACGTACGT", int(support[j, c]))
             for c in (0, 2)])
     assert text == want.getvalue()
-
-
-BASES = np.frombuffer(b"ACGT", np.uint8)
-
-
-def _near(rng, ctx, rows):
-    """Contexts near ``ctx``: a few substitutions, sometimes shifted by an
-    indel at the right end."""
-    out = ctx.copy()
-    for r in rows:
-        x = out[r]
-        if rng.random() < 0.3:
-            g = int(rng.integers(1, 3))
-            x[:] = np.concatenate([rng.choice(BASES, g), x[:-g]])
-        for _ in range(int(rng.integers(0, 4))):
-            x[rng.integers(0, len(x))] = rng.choice(BASES)
-    return out
 
 
 def _expected_single(cfg, variants):
@@ -187,24 +172,12 @@ def _expected_single(cfg, variants):
 
 @pytest.mark.parametrize("trial", range(6))
 def test_emit_single_matches_writer(trial):
-    rng = np.random.default_rng(0xC0DE + trial)
-    B, L, Lr = int(rng.integers(1, 80)), 12, 8
-    cfg = _cfg(mcov_out=int(rng.integers(1, 5)),
-               max_snvs=int(rng.integers(1, 4)),
-               max_gap=int(rng.integers(1, 4)),
-               complexity=int(rng.integers(1, 5)))
-    found = rng.random(B) < 0.9
-    passes = rng.random(B) < 0.9
-    freq = rng.random((B, 4)) < 0.6
-    full = rng.random((B, 4)) < 0.9
-    support = rng.integers(0, 8, (B, 4))
-    ctx = np.stack([_near(rng, np.tile(rng.choice(BASES, L), (4, 1)),
-                          range(4)) for _ in range(B)])
-    seq = rng.choice(BASES[:2], (B, Lr))
-    seqlen = rng.integers(0, Lr + 1, B)
+    (cfg, found, passes, freq, full, support, ctx, seq,
+     seqlen) = single_trial(trial)
+    B = len(found)
     buf = io.StringIO()
-    got = emit_vec.emit_single(buf, cfg, found, passes, freq, full, support,
-                               ctx, seq, seqlen)
+    got = emit_vec.emit_single_plain(buf, cfg, found, passes, freq, full,
+                                     support, ctx, seq, seqlen)
     want = io.StringIO()
     writer = emit.SnpWriter(want, complexity=cfg.complexity,
                             max_snvs=cfg.max_snvs, mcov_out=cfg.mcov_out,
@@ -238,7 +211,7 @@ def test_emit_pair_matches_writer(trial):
     support0, support1 = rng.integers(0, 8, (2, S, 4))
     ctx0 = np.stack([np.tile(rng.choice(BASES, L), (4, 1))
                      for _ in range(S)])
-    ctx1 = np.stack([_near(rng, c, range(4)) for c in ctx0])
+    ctx1 = np.stack([near(rng, c, range(4)) for c in ctx0])
     seq = rng.choice(BASES[:2], (S, Lr))
     seqlen = rng.integers(0, Lr + 1, S)
     buf = io.StringIO()
@@ -280,11 +253,10 @@ def test_emit_on_no_cluster_writes_nothing():
     cfg = _cfg()
     none4 = np.zeros((0, 4), bool)
     buf = io.StringIO()
-    got = emit_vec.emit_single(buf, cfg, np.zeros(0, bool), np.zeros(0, bool),
-                               none4, none4, np.zeros((0, 4), np.int64),
-                               np.zeros((0, 4, 12), np.uint8),
-                               np.zeros((0, 8), np.uint8),
-                               np.zeros(0, np.int64))
+    got = emit_vec.emit_single_plain(
+        buf, cfg, np.zeros(0, bool), np.zeros(0, bool), none4, none4,
+        np.zeros((0, 4), np.int64), np.zeros((0, 4, 12), np.uint8),
+        np.zeros((0, 8), np.uint8), np.zeros(0, np.int64))
     assert got == {"events": 0, "cluster_nr": 1, "emit_counts":
                    dict.fromkeys(emit_vec.SINGLE_COUNTS, 0)}
     got = emit_vec.emit_pair(buf, cfg, np.zeros(0, bool), none4, none4,
