@@ -18,6 +18,10 @@ Quirks kept:
 
 from __future__ import annotations
 
+import dataclasses
+from collections.abc import Callable
+from functools import partial
+
 import torch
 
 from ..ops import rank, scan
@@ -28,93 +32,97 @@ _LOW32 = 0xFFFFFFFF
 _NO_BIT = 1 << 30  # "no set bit" sentinel above every in-block offset
 
 
-def range_counts(fm: FMIndex, begins: torch.Tensor, ends: torch.Tensor):
-    """Counts of A,C,G,T in BWT[begin:end) with the TERM->A quirk, and the
-    pure (quirk-free) counts. Both endpoints go in one rank launch."""
-    return range_counts_core(lambda i: fm_ops.parallel_rank(fm, i), begins,
-                             ends)
+@dataclasses.dataclass(frozen=True)
+class Walks:
+    """The three calling walks over an index given by its rank, its select
+    and its F boundaries, on ``device``: one device's index (``of``), or
+    the mesh's, whose rank and select each query's owning shard answers
+    (``parallel/pipeline.py::OnMesh.walks``)."""
 
+    rank: Callable  # positions (...) -> A,C,G,T counts before each (..., 4)
+    select: Callable  # (r, c) -> the position of the (r+1)-th c
+    F: torch.Tensor  # (4,) int64: ``FMIndex.F``
+    device: torch.device
 
-def range_counts_core(prank, begins: torch.Tensor, ends: torch.Tensor):
-    """``range_counts`` over any rank function ``prank`` (the mesh passes
-    its sharded rank; call.py:28 of the JAX package)."""
-    r = prank(torch.stack([begins, ends], dim=-1))
-    pure = r[:, 1] - r[:, 0]  # (B, 4)
-    quirk = pure.clone()
-    quirk[:, 0] += (ends - begins) - pure.sum(-1)
-    return quirk, pure
+    @staticmethod
+    def of(fm: FMIndex) -> Walks:
+        return Walks(partial(fm_ops.parallel_rank, fm),
+                     partial(rank.select, fm.blocks, fm.block_counts), fm.F,
+                     fm.device)
 
+    def range_counts(self, begins: torch.Tensor, ends: torch.Tensor):
+        """Counts of A,C,G,T in BWT[begin:end) with the TERM->A quirk, and
+        the pure (quirk-free) counts. Both endpoints go in one rank launch
+        (call.py:28 of the JAX package)."""
+        r = self.rank(torch.stack([begins, ends], dim=-1))
+        pure = r[:, 1] - r[:, 0]  # (B, 4)
+        quirk = pure.clone()
+        quirk[:, 0] += (ends - begins) - pure.sum(-1)
+        return quirk, pure
 
-def extract_consensus_batch(fm: FMIndex, begins: torch.Tensor,
-                            ends: torch.Tensor, *, k_left: int):
-    """For every cluster and every c in {A,C,G,T}: the consensus left context
-    of length k_left ending with c, its support, and whether it reached full
-    length. Returns (ctx (B,4,k_left) int8 codes, support (B,4) int64,
-    full (B,4) bool)."""
-    return consensus_core(lambda lo, hi: fm_ops.lf_range(fm, lo, hi),
-                          begins, ends, k_left)
+    def _lf_range(self, lo: torch.Tensor, hi: torch.Tensor):
+        """``fm_index.lf_range`` over this rank."""
+        r = self.rank(torch.stack([lo, hi], dim=-1))
+        return self.F + r[..., 0, :], self.F + r[..., 1, :]
 
+    def consensus(self, begins: torch.Tensor, ends: torch.Tensor,
+                  k_left: int):
+        """For every cluster and every c in {A,C,G,T}: the consensus left
+        context of length k_left ending with c, its support, and whether it
+        reached full length. Returns (ctx (B,4,k_left) int8 codes, support
+        (B,4) int64, full (B,4) bool)."""
+        B = begins.shape[0]
+        lo4, hi4 = self._lf_range(begins, ends)  # (B, 4)
+        support = hi4 - lo4
+        ctx = torch.zeros((B * 4, k_left), dtype=torch.int8,
+                          device=begins.device)
+        ctx[:, 0] = torch.arange(4, dtype=torch.int8,
+                                 device=begins.device).repeat(B)
+        # an empty start range stops after char 0
+        alive = (support > 0).reshape(-1)
+        length = torch.ones(B * 4, dtype=torch.int64, device=begins.device)
+        lo = lo4.reshape(-1)
+        hi = hi4.reshape(-1)
+        for step in range(1, k_left):
+            l4, h4 = self._lf_range(lo, hi)
+            cnt = h4 - l4  # (B*4, 4)
+            best = torch.argmax(cnt, dim=-1, keepdim=True)  # first max wins
+            bc = torch.gather(cnt, 1, best)[:, 0]
+            alive = alive & (bc > 0)
+            lo = torch.where(alive, torch.gather(l4, 1, best)[:, 0], lo)
+            hi = torch.where(alive, torch.gather(h4, 1, best)[:, 0], hi)
+            ctx[:, step] = torch.where(alive, best[:, 0].to(torch.int8),
+                                       ctx[:, step])
+            length += alive.to(torch.int64)
+        # the context was built variant-first; reverse to genomic order
+        ctx = ctx.flip(1)
+        full = length == k_left
+        return ctx.reshape(B, 4, k_left), support, full.reshape(B, 4)
 
-def consensus_core(lf_range, begins: torch.Tensor, ends: torch.Tensor,
-                   k_left: int):
-    """``extract_consensus_batch`` over any ``lf_range(lo, hi)``."""
-    B = begins.shape[0]
-    lo4, hi4 = lf_range(begins, ends)  # (B, 4)
-    support = hi4 - lo4
-    ctx = torch.zeros((B * 4, k_left), dtype=torch.int8, device=begins.device)
-    ctx[:, 0] = torch.arange(4, dtype=torch.int8,
-                             device=begins.device).repeat(B)
-    alive = (support > 0).reshape(-1)  # empty start range stops after char 0
-    length = torch.ones(B * 4, dtype=torch.int64, device=begins.device)
-    lo = lo4.reshape(-1)
-    hi = hi4.reshape(-1)
-    for step in range(1, k_left):
-        l4, h4 = lf_range(lo, hi)
-        cnt = h4 - l4  # (B*4, 4)
-        best = torch.argmax(cnt, dim=-1, keepdim=True)  # first max wins
-        bc = torch.gather(cnt, 1, best)[:, 0]
-        alive = alive & (bc > 0)
-        lo = torch.where(alive, torch.gather(l4, 1, best)[:, 0], lo)
-        hi = torch.where(alive, torch.gather(h4, 1, best)[:, 0], hi)
-        ctx[:, step] = torch.where(alive, best[:, 0].to(torch.int8),
-                                   ctx[:, step])
-        length += alive.to(torch.int64)
-    # the context was built variant-first; reverse to genomic order
-    ctx = ctx.flip(1)
-    full = length == k_left
-    return ctx.reshape(B, 4, k_left), support, full.reshape(B, 4)
+    def _fl(self, i: torch.Tensor) -> torch.Tensor:
+        """``fm_index.fl`` over this select."""
+        cc = fm_ops.f_char(self, i).clamp(0, 3)
+        return self.select((i - self.F[cc]).clamp_min(0), cc)
 
-
-def extract_dna_batch(fm: FMIndex, starts: torch.Tensor, active: torch.Tensor,
-                      *, k_right: int):
-    """Forward extraction of up to k_right characters starting at F position
-    ``starts``; stops at TERM (extract_dna, ebwt2InDel.cpp:325-342).
-    Returns (seq (B, k_right) int8 codes, length (B,) int64)."""
-    return extract_dna_core(lambda i: fm_ops.f_char(fm, i),
-                            lambda i: fm_ops.fl(fm, i), starts, active,
-                            k_right)
-
-
-def extract_dna_core(f_char, fl, starts: torch.Tensor, active: torch.Tensor,
-                     k_right: int):
-    """``extract_dna_batch`` over any ``f_char(i)`` and ``fl(i)``."""
-    B = starts.shape[0]
-    seq = torch.zeros((B, k_right), dtype=torch.int8, device=starts.device)
-    length = torch.zeros(B, dtype=torch.int64, device=starts.device)
-    i, alive = starts, active
-    for step in range(k_right):
-        c = f_char(i)
-        alive = alive & (c != 4)
-        seq[:, step] = torch.where(alive, c.to(torch.int8), seq[:, step])
-        length += alive.to(torch.int64)
-        # dead rows walk from 0; fl keeps them in bounds, the result is unused
-        i = torch.where(alive, fl(torch.where(alive, i, 0)), i)
-    return seq, length
-
-
-# next_set[i] = smallest j >= i with thr_R[j] set (n if none): the JAX
-# package's name for the dense route's table, which the next-set op builds
-next_set_table = scan.next_set
+    def dna(self, starts: torch.Tensor, active: torch.Tensor, k_right: int):
+        """Forward extraction of up to k_right characters starting at F
+        position ``starts``; stops at TERM (extract_dna,
+        ebwt2InDel.cpp:325-342). Returns (seq (B, k_right) int8 codes,
+        length (B,) int64)."""
+        B = starts.shape[0]
+        seq = torch.zeros((B, k_right), dtype=torch.int8,
+                          device=starts.device)
+        length = torch.zeros(B, dtype=torch.int64, device=starts.device)
+        i, alive = starts, active
+        for step in range(k_right):
+            c = fm_ops.f_char(self, i)
+            alive = alive & (c != 4)
+            seq[:, step] = torch.where(alive, c.to(torch.int8), seq[:, step])
+            length += alive.to(torch.int64)
+            # dead rows walk from 0; fl keeps them in bounds, the result is
+            # unused
+            i = torch.where(alive, self._fl(torch.where(alive, i, 0)), i)
+        return seq, length
 
 
 def _lowest_bit(w: torch.Tensor) -> torch.Tensor:
@@ -141,23 +149,28 @@ def _anchor_from_words(words: torch.Tensor, n: int):
     return words, torch.cat([T, T.new_full((1,), n)])
 
 
-def first_thr_position_device(next_set, begins: torch.Tensor,
+def first_thr_position_device(next_set: torch.Tensor, begins: torch.Tensor,
                               ends: torch.Tensor):
     """For each cluster the first position in [begin, end) with thr_R set
     (the right-context anchor, cpp:979-985): returns (pos, found).
-    ``next_set`` is the dense route's next-set table or the packed
-    route's (words, T); with (words, T) it is one word-row gather, the
-    lowest set bit at or after the in-block offset, else T[b + 1]
-    (call.py:229-249)."""
-    if isinstance(next_set, tuple):
-        words, T = next_set
-        b = begins >> 7
-        slot = torch.arange(0, 128, 32, device=begins.device)
-        start = ((begins & 127)[:, None] - slot).clamp(0, 32)
-        m = rank._bv_row(words, b) & ~((1 << start) - 1)
-        off = (_lowest_bit(m) + slot).min(1).values
-        pos = torch.where(off < 128, b * 128 + off, T[b + 1])
-    else:
-        pos = next_set[begins.clamp(0, next_set.shape[0] - 1)]
+    ``next_set`` is the dense route's next-set table (``scan.next_set``:
+    next_set[i] = the smallest j >= i with thr_R[j] set, n if none)."""
+    return _found(next_set[begins.clamp(0, next_set.shape[0] - 1)], ends)
+
+
+def first_thr_position_packed(words: torch.Tensor, T: torch.Tensor,
+                              begins: torch.Tensor, ends: torch.Tensor):
+    """``first_thr_position_device`` over the bit-packed route's (words, T)
+    (``_anchor_from_words``): one word-row gather, the lowest set bit at or
+    after the in-block offset, else T[b + 1] (call.py:229-249)."""
+    b = begins >> 7
+    slot = torch.arange(0, 128, 32, device=begins.device)
+    start = ((begins & 127)[:, None] - slot).clamp(0, 32)
+    m = rank._bv_row(words, b) & ~((1 << start) - 1)
+    off = (_lowest_bit(m) + slot).min(1).values
+    return _found(torch.where(off < 128, b * 128 + off, T[b + 1]), ends)
+
+
+def _found(pos: torch.Tensor, ends: torch.Tensor):
     found = pos < ends
     return torch.where(found, pos, 0), found

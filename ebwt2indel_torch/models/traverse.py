@@ -56,12 +56,14 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
+from functools import partial
 
 import torch
 
 from ..device import synchronize
-from ..ops import bits
+from ..ops import bits, rank, scan
 from ..utils.profile import span
+from . import call, cluster
 from . import fm_index as fm_ops
 from .fm_index import FMIndex
 
@@ -74,12 +76,12 @@ CHUNK = 256 * 1024  # rows popped per step (traverse.py:39)
 WAIT = "node_phase.wait"
 
 # The route switch (the JAX package's _LEAN_N = 2**27, traverse.py:1221, was
-# sized for a 16 GB TPU). On an 80 GB H100 the dense route peaked at 35.75 B
-# per position: 4,152,354,816 B at 116,149,697 positions and
-# 37,552,146,432 B at 1,050,398,182. At 2**30 positions that is 38.4 GB,
-# under half the card; at 2**31 it would be 76.8 GB, past what the card
-# leaves free. So inputs from 2**30 positions on take the bit-packed route
-# (9.09 B per position at 1,050,398,182).
+# sized for a 16 GB TPU). On an 80 GB H100 the dense route peaks at
+# 19.17-19.19 B per position from 116,149,697 to 1,050,398,182 positions,
+# the packed route at 9.09 B per position at 1,050,398,182. Memory alone
+# would keep the dense route on the card to about 3.9 G positions (75 GB),
+# near the packer's CAP, so 2**30 is not a memory bound: which route is
+# faster on either side of it is still to be measured.
 LEAN_N = 2**30
 # positions per slice of the packed route's passes (traverse.py:1222)
 LEAN_SLICE = 2**24
@@ -90,14 +92,45 @@ class TraversalResult:
     """Flag vectors + diagnostics (the reference's globals LCP_threshold /
     LCP_minima, ebwt2InDel.cpp:56-58). With ``packed`` each flag vector is
     instead (4 * (n // 128 + 1),) int32 words in the ``ops/bits.py``
-    layout, pad bits 0."""
+    layout, pad bits 0. The methods read the flags in their layout, so that
+    no caller needs to know it; ``parallel/calling.py::ShardedTraversal``
+    answers the same calls on the mesh."""
 
     thr_K: torch.Tensor  # (n,) uint8 — LCP_threshold[2i]   (LCP[i] >= K)
     thr_R: torch.Tensor  # (n,) uint8 — LCP_threshold[2i+1] (LCP[i] >= k_right)
     minima: torch.Tensor  # (n,) uint8
     stats: dict
+    n: int
     da: torch.Tensor | None = None  # (n,) uint8, 1 = collection 2 (mode 2)
     packed: bool = False
+
+    def anchor(self):
+        """The right-context anchor, ``(begins, ends) -> (pos, found)``
+        (``call.first_thr_position_*``), over a structure built from thr_R
+        on the device's clock (span ``cluster.next_set``): the next-set
+        table, or the packed route's (words, T). It holds that structure,
+        not this result."""
+        with span("cluster.next_set", device=self.thr_R.device):
+            if self.packed:
+                return partial(call.first_thr_position_packed,
+                               *call._anchor_from_words(self.thr_R, self.n))
+            return partial(call.first_thr_position_device,
+                           scan.next_set(self.thr_R))
+
+    def clusters(self, mcov_out: int) -> cluster.Clusters:
+        """The clusters of thr_K and minima (``cluster.py``)."""
+        if self.packed:
+            return cluster.find_clusters_device_packed(
+                self.thr_K, self.minima, n=self.n, mcov_out=mcov_out)
+        return cluster.find_clusters_device(self.thr_K, self.minima,
+                                            mcov_out)
+
+    def da_rank(self) -> rank.BitRank:
+        """Mode 2's document array as a rank structure: the packed route's
+        DA is already words in its layout and needs only the counts."""
+        if self.packed:
+            return rank.BitRank(self.da, bits.bv_counts(self.da))
+        return rank.BitRank(*bits.bv_build(self.da))
 
 
 def _char_major(children: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -548,7 +581,7 @@ def navigate_one_bwt(fm: FMIndex, K: int, k_right: int,
         "n_min": n_[2], "max_pending": max(maxp_l, maxp_n),
     }
     return TraversalResult(thr_K=thr_K, thr_R=thr_R, minima=minima,
-                           stats=stats, packed=packed)
+                           stats=stats, n=n, packed=packed)
 
 
 def navigate_two_bwts(fm1: FMIndex, fm2: FMIndex, K: int, k_right: int,
@@ -607,4 +640,4 @@ def navigate_two_bwts(fm1: FMIndex, fm2: FMIndex, K: int, k_right: int,
         "max_pending": max(maxp_l, maxp_n),
     }
     return TraversalResult(thr_K=thr_K, thr_R=thr_R, minima=minima,
-                           stats=stats, da=da, packed=packed)
+                           stats=stats, n=n, da=da, packed=packed)

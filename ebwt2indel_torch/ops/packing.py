@@ -13,8 +13,9 @@ Layout (reference: internal/dna_string.hpp:19-41, 320-369, 554-585):
 
 Block counters are 32-bit, so one run is capped below 2^32 characters.
 
-Mode 3 also reads a document array (``read_da_file``) and packs it into the
-rank-1 bitvector layout of ``ops/bits.py`` (``pack_bitvector``).
+Mode 3 also reads a document array (``read_da_file``), packs it into the
+rank-1 bitvector layout of ``ops/bits.py`` (``pack_bitvector``), and makes
+the bytes of its DA = 1 side's index (``mask_da0``).
 
 ``pack_file_cached`` keeps a packed index beside its input, in the
 ``<input>.idx.npz`` sidecar of the JAX package (packing.py:189-224 there):
@@ -322,3 +323,12 @@ def read_da_file(path: str, n: int) -> np.ndarray:
     '1' marking the second collection (ebwt2InDel.cpp:1495-1508)."""
     raw = np.fromfile(path, dtype=np.uint8, count=n)
     return (raw == ord("1")).astype(np.uint8)
+
+
+def mask_da0(raw: np.ndarray, da: np.ndarray, term: int) -> np.ndarray:
+    """The eBWT bytes of mode 3's DA = 1 side: each byte whose document
+    array bit ``da`` (0/1 uint8) is 0 becomes TERM (in ASCII, so the native
+    packer packs it). The select is done in uint8 arithmetic, exact modulo
+    256: np.where is ~5x slower at 116M positions."""
+    t = np.uint8(term)
+    return (raw - t) * da + t

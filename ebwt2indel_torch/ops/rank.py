@@ -20,6 +20,8 @@ are int64 throughout.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 BLOCK = 128
@@ -193,3 +195,18 @@ def bv_get(words: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """Bit at position i, int64 0 or 1 (rank.py:449-454)."""
     word = words[(i >> 5).clamp(0, words.shape[0] - 1)].to(torch.int64)
     return (word >> (i & 31)) & 1
+
+
+class BitRank(NamedTuple):
+    """A 0/1 vector's rank structure (``bits.bv_build``'s layout) answering
+    ``bv_rank1`` and ``bv_get``; the mesh's ``calling.ShardedBits`` answers
+    the same calls."""
+
+    words: torch.Tensor
+    counts: torch.Tensor
+
+    def rank1(self, i: torch.Tensor) -> torch.Tensor:
+        return bv_rank1(self.words, self.counts, i)
+
+    def get(self, i: torch.Tensor) -> torch.Tensor:
+        return bv_get(self.words, i)

@@ -3,62 +3,34 @@
 
 Cluster state (begins, ends, walk intervals) is O(#clusters) and every
 shard holds all of it, on ``mesh.device``; every rank and select is
-answered by the owning shard and combined by one ``psum``. The walk bodies
-are ``models/call.py``'s (``range_counts_core``, ``consensus_core``,
-``extract_dna_core``). Flags, the anchor table and the document array's
-rank structure (``ShardedBits``) stay sharded in the traversal's partition:
-shard s holds positions [s * local_n, (s + 1) * local_n).
+answered by the owning shard and combined by one ``psum``. The walks are
+``models/call.py``'s ``Walks`` over the sharded rank and select
+(``shard.py``). Flags, the anchor table and the document array's rank
+structure (``ShardedBits``) stay sharded in the traversal's partition:
+shard s holds positions [s * local_n, (s + 1) * local_n). The pipelines'
+skeletons (``models/pipeline.py``) reach them through ``ShardedTraversal``
+and ``ShardedBits``, which answer the calls of ``traverse.TraversalResult``
+and ``rank.BitRank``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import torch
 
-from ..models import call, cluster
-from ..models import fm_index as fm_ops
+from ..models import cluster
 from ..ops import bits, rank, scan
-from . import shard
 from .mesh import Mesh
-from .shard import ShardedFM
-
-
-def range_counts_sharded(sfm: ShardedFM, begins: torch.Tensor,
-                         ends: torch.Tensor):
-    """``call.range_counts`` on the mesh: (quirk, pure) counts."""
-    return call.range_counts_core(
-        lambda i: shard.sharded_parallel_rank(sfm, i), begins, ends)
-
-
-def extract_consensus_sharded(sfm: ShardedFM, begins: torch.Tensor,
-                              ends: torch.Tensor, *, k_left: int):
-    """``call.extract_consensus_batch`` on the mesh."""
-    def lf_range(lo, hi):
-        r = shard.sharded_parallel_rank(sfm, torch.stack([lo, hi], dim=-1))
-        return sfm.F + r[..., 0, :], sfm.F + r[..., 1, :]
-
-    return call.consensus_core(lf_range, begins, ends, k_left)
-
-
-def extract_dna_sharded(sfm: ShardedFM, starts: torch.Tensor,
-                        active: torch.Tensor, *, k_right: int):
-    """``call.extract_dna_batch`` on the mesh: the FL step's select runs on
-    the shard that holds the target rank (by ``bounds``)."""
-    def fl(i):
-        cc = fm_ops.f_char(sfm, i).clamp(0, 3)
-        return shard.sharded_select(sfm, (i - sfm.F[cc]).clamp_min(0), cc)
-
-    return call.extract_dna_core(lambda i: fm_ops.f_char(sfm, i), fl,
-                                 starts, active, k_right)
 
 
 def next_set_table_sharded(mesh: Mesh, thr_R: dict, *, local_n: int,
                            n: int) -> dict:
-    """``call.next_set_table`` on the mesh: next_set[i] = the smallest
-    j >= i with thr_R[j] set (n if none), per shard. The next-set op over
-    the shard's slice from its first global position, then the minimum of
-    the shards to the right (one gather of S values)."""
+    """``scan.next_set`` on the mesh: next_set[i] = the smallest j >= i
+    with thr_R[j] set (n if none), per shard. The next-set op over the
+    shard's slice from its first global position, then the minimum of the
+    shards to the right (one gather of S values)."""
     loc = {s: scan.next_set(thr_R[s], base=s * local_n, n=n)
            for s in mesh.local}
     firsts = torch.cat(mesh.all_gather({s: loc[s][:1] for s in mesh.local}))
@@ -123,13 +95,20 @@ def first_thr_position_sharded(mesh: Mesh, next_set: dict,
 class ShardedBits:
     """A 0/1 vector (the document array) sharded in ``local_n``-position
     slices: each shard's ``bits.bv_build`` words and counts over its own
-    slice, and the ones before each shard (S,) on ``mesh.device``."""
+    slice, and the ones before each shard (S,) on ``mesh.device``. It
+    answers the calls of ``rank.BitRank``."""
 
     mesh: Mesh
     words: dict
     counts: dict
     before: torch.Tensor
     local_n: int
+
+    def rank1(self, i: torch.Tensor) -> torch.Tensor:
+        return bv_rank1_sharded(self, i)
+
+    def get(self, i: torch.Tensor) -> torch.Tensor:
+        return bv_get_sharded(self, i)
 
 
 def bv_build_sharded(mesh: Mesh, parts: dict, *,
@@ -173,3 +152,40 @@ def bv_get_sharded(bv: ShardedBits, i: torch.Tensor) -> torch.Tensor:
         parts[s] = torch.where(
             mine, rank.bv_get(bv.words[s], q.clamp(0, L - 1)), 0)
     return mesh.psum(parts)
+
+
+@dataclasses.dataclass
+class ShardedTraversal:
+    """``traverse.TraversalResult`` on the mesh: the flags that
+    ``frontier.navigate_*_sharded`` return, a dict of the local shards'
+    (local_n,) uint8 vectors each. Each method is called once and lets go
+    of the flags it reads, so that they are freed as soon as it returns."""
+
+    mesh: Mesh
+    local_n: int
+    n: int
+    stats: dict
+    thr_K: dict
+    thr_R: dict
+    minima: dict
+    da: dict | None = None
+
+    def anchor(self):
+        """``(begins, ends) -> (pos, found)`` over the sharded next-set
+        table."""
+        thr_R, self.thr_R = self.thr_R, None
+        table = next_set_table_sharded(self.mesh, thr_R, local_n=self.local_n,
+                                       n=self.n)
+        return partial(first_thr_position_sharded, self.mesh, table,
+                       local_n=self.local_n)
+
+    def clusters(self, mcov_out: int) -> cluster.Clusters:
+        thr_K, minima = self.thr_K, self.minima
+        self.thr_K = self.minima = None
+        return find_clusters_sharded(self.mesh, thr_K, minima,
+                                     local_n=self.local_n, n=self.n,
+                                     mcov_out=mcov_out)
+
+    def da_rank(self) -> ShardedBits:
+        da, self.da = self.da, None
+        return bv_build_sharded(self.mesh, da, local_n=self.local_n)

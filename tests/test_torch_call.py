@@ -50,7 +50,7 @@ def _t(x):
 def test_range_counts_matches_jax(index, rng):
     jf, tf = index
     b, e = _ranges(rng, tf.n, 600, width=300)
-    quirk, pure = call.range_counts(tf, _t(b), _t(e))
+    quirk, pure = call.Walks.of(tf).range_counts(_t(b), _t(e))
     jq, jp = jcall.range_counts(jf, _j(b), _j(e))
     np.testing.assert_array_equal(quirk.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(pure.numpy(), np.asarray(jp))
@@ -66,8 +66,7 @@ def test_consensus_with_ties_matches_jax(index, rng):
     cnt = (hi - lo).sort(dim=1, descending=True).values
     assert bool(((cnt[:, 0] == cnt[:, 1]) & (cnt[:, 0] > 0)).any())
     for k_left in (2, 9):
-        ctx, sup, full = call.extract_consensus_batch(tf, _t(b), _t(e),
-                                                      k_left=k_left)
+        ctx, sup, full = call.Walks.of(tf).consensus(_t(b), _t(e), k_left)
         jctx, jsup, jfull = jcall.extract_consensus_batch(
             jf, _j(b), _j(e), k_left=k_left)
         np.testing.assert_array_equal(ctx.numpy(), np.asarray(jctx))
@@ -80,8 +79,8 @@ def test_extract_dna_matches_jax(index, rng):
     jf, tf = index
     starts = rng.integers(0, tf.n, size=700)
     active = rng.random(700) < 0.8
-    seq, ln = call.extract_dna_batch(tf, _t(starts), torch.from_numpy(active),
-                                     k_right=25)
+    seq, ln = call.Walks.of(tf).dna(_t(starts), torch.from_numpy(active),
+                                    25)
     jseq, jln = jcall.extract_dna_batch(jf, _j(starts), jnp.asarray(active),
                                         k_right=25)
     np.testing.assert_array_equal(seq.numpy(), np.asarray(jseq))
@@ -93,7 +92,7 @@ def test_extract_dna_matches_jax(index, rng):
 def test_next_set_table_and_anchor_match_jax(rng, p):
     n = 3000
     thr_R = (rng.random(n) < p).astype(np.uint8)
-    got = call.next_set_table(torch.from_numpy(thr_R))
+    got = scan.next_set(torch.from_numpy(thr_R))
     want = np.asarray(jcall.next_set_table(jnp.asarray(thr_R)))
     np.testing.assert_array_equal(got.numpy(), want)
     b = rng.integers(0, n - 50, size=400)
@@ -181,7 +180,7 @@ def test_next_set_plain_matches_brute_force(rng, case):
         np.testing.assert_array_equal(got.numpy(), want)
     if base == 0 and n == size:
         np.testing.assert_array_equal(
-            call.next_set_table(torch.from_numpy(f)).numpy(), want)
+            scan.next_set(torch.from_numpy(f)).numpy(), want)
 
 
 def test_next_set_refuses_other_devices():

@@ -120,7 +120,7 @@ def test_masked_loader_matches_single_device_bytes(data, S):
     sfm, bv = ppipe.load_da_side(m, raw, da_bytes, ord("#"))
     da = packing.read_da_file(data["paths"]["input_da"], n)
     want = shard.shard_fm(packing.pack_bytes(
-        pipeline.mask_da0(raw, da, ord("#"))), m)
+        packing.mask_da0(raw, da, ord("#"))), m)
     assert (sfm.rows, sfm.n) == (want.rows, want.n)
     for s in range(S):
         assert torch.equal(sfm.blocks[s], want.blocks[s]), s

@@ -24,7 +24,7 @@ from ebwt2indel_tpu.tools import simulate as jsim
 from ebwt2indel_tpu.utils.config import Config
 from ebwt2indel_torch.models import call, cluster, pipeline, traverse
 from ebwt2indel_torch.models.fm_index import FMIndex
-from ebwt2indel_torch.ops import bits, packing
+from ebwt2indel_torch.ops import bits, packing, scan
 
 # the pipelines' defaults (Config), so that the JAX runs' captured
 # traversals and clusters are comparable with the port's own calls
@@ -243,9 +243,9 @@ def test_anchor_and_first_thr_match_jax_and_dense(data, jax_runs, mode):
         [rng.integers(1, 400, 400), (cl.ends - cl.begins).numpy(),
          [1, 1, 129, 1]]), n)
     tb, te = torch.from_numpy(begins), torch.from_numpy(ends)
-    pos, found = call.first_thr_position_device((words, T), tb, te)
+    pos, found = call.first_thr_position_packed(words, T, tb, te)
     dpos, dfound = call.first_thr_position_device(
-        call.next_set_table(dense.thr_R), tb, te)
+        scan.next_set(dense.thr_R), tb, te)
     jpos, jfound = jcall.first_thr_position_device(
         (jwords, jT), begins.astype(np.int32), ends.astype(np.int32))
     assert found.any() and not found.all()
