@@ -14,14 +14,19 @@ Phases, each of which must pass (the script exits 1 otherwise):
 4. mode 1 at full size (4.6 Mbp genome, 25x, 100 bp reads, seed 0xBE7C: the
    bench's E. coli-scale dataset, ~116M BWT positions, built once into
    ``data/``) through ``ebwt2indel_torch.cli.main`` on CUDA, with every
-   kernel's launch count reset just before and read just after;
+   kernel's launch count reset just before and read just after; the
+   node-step kernel (``csrc/node_step.cu``) must launch once a node step
+   (phase 10 the same in mode 3, and never in mode 2);
 5. mode 1 on CUDA against the CPU (the plain PyTorch path) on the same
    recipe cut to a 0.575 Mbp genome (~14.5M positions): the .snp must be
    byte-identical and the stats equal;
 6. the rank kernel timed against its plain version at the main path's shape:
    the first node chunk (256k nodes x 6 boundaries) of the full-size index;
-   and the next-set kernel (``csrc/next_set.cu``) on 116.15 M flags of the
-   benchmark's density: bit for bit its plain version, timed beside it, its
+   the node-step kernel on the same chunk: flags, counts and children equal
+   to the plain step's, its launches timed beside their byte bound, the
+   whole step (its count's read included) and the plain step on the
+   host's clock; and the next-set kernel (``csrc/next_set.cu``) on
+   116.15 M flags of the benchmark's density: bit for bit its plain version, timed beside it, its
    byte bound and the ``torch.cummin`` call the plain version makes, its
    launches those of phase 4's run (each full-size and mesh run below logs
    its ``next_set`` launches beside ``rank_decode``'s and must launch both);
@@ -366,14 +371,13 @@ def _cli_run(args: list, cli_log: str) -> dict:
     import torch
 
     from ebwt2indel_torch import cli
-    from ebwt2indel_torch.ops import emit_cuda, rank_cuda, scan_cuda
+    from ebwt2indel_torch.ops import emit_cuda, node_cuda, rank_cuda, scan_cuda
 
     os.makedirs(os.path.dirname(cli_log), exist_ok=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rank_cuda.reset_launches()
-    scan_cuda.reset_launches()
-    emit_cuda.reset_launches()
+    for mod in (rank_cuda, scan_cuda, emit_cuda, node_cuda):
+        mod.reset_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -381,7 +385,7 @@ def _cli_run(args: list, cli_log: str) -> dict:
     torch.cuda.synchronize()
     r = {"wall": time.perf_counter() - t0, "text": buf.getvalue(),
          "launches": {**rank_cuda.LAUNCHES, **scan_cuda.LAUNCHES,
-                      **emit_cuda.LAUNCHES},
+                      **emit_cuda.LAUNCHES, **node_cuda.LAUNCHES},
          "queries": dict(rank_cuda.QUERIES),
          "peak": torch.cuda.max_memory_allocated()}
     with open(cli_log, "w") as f:
@@ -389,6 +393,36 @@ def _cli_run(args: list, cli_log: str) -> dict:
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc} (see {cli_log})")
     return r
+
+
+@contextlib.contextmanager
+def _node_steps():
+    """The number of node steps (calls of ``traverse._node_body``, modes 1
+    and 3) inside the block, in a one-element list."""
+    from ebwt2indel_torch.models import traverse
+
+    steps, real = [0], traverse._node_body
+
+    def counted(*a):
+        steps[0] += 1
+        return real(*a)
+
+    traverse._node_body = counted
+    try:
+        yield steps
+    finally:
+        traverse._node_body = real
+
+
+def _check_node_steps(label: str, launches: dict, steps: int,
+                      mode: int) -> None:
+    """The node-step kernel launched once a node step in modes 1 and 3, and
+    never in mode 2, whose node-pair step is plain PyTorch."""
+    want = steps if mode != 2 else 0
+    if launches["node_step"] != want or (mode != 2) != (steps > 0):
+        raise AssertionError(f"{label}: node_step launched "
+                             f"{launches['node_step']} times over {steps} "
+                             f"node steps in mode {mode}")
 
 
 def _mode1_log(text: str) -> dict:
@@ -424,8 +458,9 @@ def phase_full(results: dict, data_dir: str, log_dir: str) -> None:
     log(f"[full] set-up: dataset of {n} BWT positions ready in "
         f"{time.perf_counter() - t0:.1f} s ({path})")
     out = os.path.join(data_dir, f"reads_{tag}.snp")
-    r = _cli_run(["-1", path, "-o", out],
-                 os.path.join(log_dir, "chip_smoke_cli.log"))
+    with _node_steps() as steps:
+        r = _cli_run(["-1", path, "-o", out],
+                     os.path.join(log_dir, "chip_smoke_cli.log"))
     st = _mode1_log(r["text"])
     wall, launches = r["wall"], r["launches"]
     digest = hashlib.sha256(open(out, "rb").read()).hexdigest()
@@ -443,6 +478,9 @@ def phase_full(results: dict, data_dir: str, log_dir: str) -> None:
             launches["emit_single"] != 1:
         raise AssertionError(f"a kernel never launched on the main path, or "
                              f"the emission not once: {launches}")
+    _check_node_steps("full mode 1", launches, steps[0], 1)
+    log(f"[full] node steps {steps[0]}, node_step launches "
+        f"{launches['node_step']}")
     results["launches"] = launches
     results["full_stats"] = st
     results["full_path"] = path
@@ -515,12 +553,16 @@ def phase_profile(results: dict, data_dir: str, mode: int = 1) -> None:
         log(f"[profile] {ms:10.3f} ms  {100 * ms / busy:5.1f}%  {count:6d}  "
             f"{name[:100]}")
     five = ("index", "leaf_phase", "node_phase", "cluster", "call_emit")
+    # mode 3 waits for its DA side between the traversal and the clusters
+    # (span da_wait): the DA's upload, launched by the worker, lands there
+    # when the traversal ends first
+    phases = five + (("da_wait",) if mode == 3 else ())
     # the parts of a phase (index.pack, ...) are spans inside it
     in_phases = sum(p["busy_ms"] for name, p in top["phases"].items()
-                    if name in five)
+                    if name in phases)
     log(f"[profile] mode {mode}: {top['linked']} device events placed in "
         f"phases by their launch; {in_phases:.3f} ms of the device time in "
-        "the five phases")
+        f"the phases {', '.join(phases)}")
     for name, p in top["phases"].items():
         log(f"[profile] mode {mode} phase {name}: device {p['busy_ms']:.3f} "
             f"ms of a {p['span_ms']:.3f} ms span")
@@ -528,11 +570,10 @@ def phase_profile(results: dict, data_dir: str, mode: int = 1) -> None:
     if missing:
         raise AssertionError(f"phases not marked in the trace: {missing}")
     # a phase ends with a device synchronise, so the device time of the
-    # kernels it launched fits in its span, and the five phases hold nearly
-    # all of the run's: more in a phase, or less in all, means misplaced
-    # events
+    # kernels it launched fits in its span, and the phases hold nearly all
+    # of the run's: more in a phase, or less in all, means misplaced events
     over = [name for name, p in top["phases"].items()
-            if name in five and p["busy_ms"] > 1.02 * p["span_ms"] + 1.0]
+            if name in phases and p["busy_ms"] > 1.02 * p["span_ms"] + 1.0]
     if over or in_phases < 0.95 * busy:
         raise AssertionError(f"device time misplaced: over the span in "
                              f"{over}, {in_phases:.3f} of {busy:.3f} ms in "
@@ -645,8 +686,9 @@ def phase_full_pair(results: dict, mode: int, data_dir: str,
     """Mode 3 or 2 at full size through ``cli.main`` on CUDA."""
     paths = results["pair_paths"]
     out = os.path.join(data_dir, f"full_mode{mode}.snp")
-    r = _cli_run(_pair_args(paths, mode) + ["-o", out],
-                 os.path.join(log_dir, f"chip_smoke_cli_mode{mode}.log"))
+    with _node_steps() as steps:
+        r = _cli_run(_pair_args(paths, mode) + ["-o", out],
+                     os.path.join(log_dir, f"chip_smoke_cli_mode{mode}.log"))
     wall, launches = r["wall"], r["launches"]
     snp = open(out, "rb").read()
     st = _pair_log(r["text"], snp, mode)
@@ -669,6 +711,9 @@ def phase_full_pair(results: dict, mode: int, data_dir: str,
             launches["emit_single"] != 0:
         raise AssertionError(f"a kernel never launched on mode {mode}, or "
                              f"mode 1's emission did: {launches}")
+    _check_node_steps(f"full mode {mode}", launches, steps[0], mode)
+    log(f"[full] mode {mode} node steps {steps[0]}, node_step launches "
+        f"{launches['node_step']}")
     results[f"mode{mode}"] = {"full_path": paths, "full_out": out, "n": n,
                               "full_wall": wall, "stats": st}
 
@@ -678,12 +723,12 @@ def _measured_run(mode: int, inp, out: str, packed) -> dict:
     the peak memory reset just before and read just after."""
     import torch
 
-    from ebwt2indel_torch.ops import rank_cuda, scan_cuda
+    from ebwt2indel_torch.ops import node_cuda, rank_cuda, scan_cuda
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rank_cuda.reset_launches()
-    scan_cuda.reset_launches()
+    for mod in (rank_cuda, scan_cuda, node_cuda):
+        mod.reset_launches()
     t0 = time.perf_counter()
     st = RUNS[mode](inp, out, "cuda", packed=packed)
     torch.cuda.synchronize()
@@ -692,6 +737,7 @@ def _measured_run(mode: int, inp, out: str, packed) -> dict:
             "launches": rank_cuda.LAUNCHES["rank_decode"],
             "queries": rank_cuda.QUERIES["rank_decode"],
             "next_set": scan_cuda.LAUNCHES["next_set"],
+            "node_step": node_cuda.LAUNCHES["node_step"],
             "snp": open(out, "rb").read()}
 
 
@@ -722,7 +768,7 @@ def _route_line(label: str, packed: bool, r: dict, n: int) -> None:
         f"({n / r['wall'] / 1e6:.3f} Mpos/s); phases: {phases}; peak "
         f"{r['peak']} bytes ({r['peak'] / n:.3f} B/position); rank_decode "
         f"{r['launches']} launches, {r['queries']} queries; next_set "
-        f"{r['next_set']} launches")
+        f"{r['next_set']} launches; node_step {r['node_step']} launches")
 
 
 def phase_packed_116m(results: dict, data_dir: str) -> None:
@@ -773,6 +819,7 @@ def phase_scale_1g(results: dict, data_dir: str, log_dir: str) -> None:
                       "launches": r["launches"]["rank_decode"],
                       "queries": r["queries"]["rank_decode"],
                       "next_set": r["launches"]["next_set"],
+                      "node_step": r["launches"]["node_step"],
                       "snp": open(out, "rb").read()}}
     _route_line("scale_1G cli.main", default, runs[default], n)
     runs[not default] = _measured_run(
@@ -1024,8 +1071,8 @@ def phase_resume_116m(results: dict, data_dir: str) -> None:
 
 
 def _node_chunk(fm):
-    """The boundaries (CHUNK, 6) of the first node chunk of an index: real
-    suffix-tree nodes, in node-major order."""
+    """The first node chunk (CHUNK, 7) of an index: real suffix-tree nodes,
+    their 6 boundaries and depth, in node-major order."""
     from ebwt2indel_torch.models import fm_index as fm_ops
     from ebwt2indel_torch.models import traverse
 
@@ -1034,7 +1081,7 @@ def _node_chunk(fm):
         ext = fm_ops.extend_node(fm, frontier)
         frontier = traverse._char_major(
             ext, fm_ops.node_num_children(ext) >= 2)
-    return frontier[: traverse.CHUNK, :6].contiguous()
+    return frontier[: traverse.CHUNK].contiguous()
 
 
 def phase_mesh_rank_vs_plain(results: dict) -> None:
@@ -1052,7 +1099,7 @@ def phase_mesh_rank_vs_plain(results: dict) -> None:
     fm = fm_ops.FMIndex.from_file(results["full_path"], device="cuda")
     n, L = fm.n, sfm.local_n
     rng = np.random.default_rng(5)
-    coords = _node_chunk(fm)
+    coords = _node_chunk(fm)[:, :6].contiguous()
     edges = [0, 127, 128, n - 1, n] + [k * L + d for k in range(1, 4)
                                        for d in (-1, 0, 1)]
     queries = {
@@ -1581,7 +1628,8 @@ def phase_past2g31(results: dict, mode: int, data_dir: str,
         log(f"[{label}] k={k}: peak {r['peak']} bytes ({r['peak'] / n:.3f} "
             f"B/position); rank_decode {r['launches']['rank_decode']} "
             f"launches, {r['queries']['rank_decode']} queries; next_set "
-            f"{r['launches']['next_set']} launches")
+            f"{r['launches']['next_set']} launches; node_step "
+            f"{r['launches']['node_step']} launches")
         log(f"[{label}] k={k}: stats " + ", ".join(
             f"{x} {v}" for x, v in st.items() if x not in ("n", "seconds"))
             + f", max_pending {r['trav']['max_pending']}")
@@ -1706,7 +1754,7 @@ def phase_kernel_at_main_shape(results: dict) -> dict:
     from ebwt2indel_torch.ops import rank
 
     fm = fm_ops.FMIndex.from_file(results["full_path"], device="cuda")
-    coords = _node_chunk(fm)
+    coords = _node_chunk(fm)[:, :6].contiguous()
     B = coords.numel()
     got = rank.parallel_rank(fm.blocks, coords)
     torch.cuda.synchronize()
@@ -1733,6 +1781,100 @@ def phase_kernel_at_main_shape(results: dict) -> dict:
         "launches": results["launches"]["rank_decode"],
         "max_abs_err": int((got - want).abs().max()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+        "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S
+        >= n_ops / INT32_OPS_PER_S else "operations",
+        "library_ms": None,
+    }
+
+
+def phase_node_step_at_main_shape(results: dict) -> dict:
+    """The node-step kernel on the first node chunk of the full-size index
+    (``CHUNK`` real nodes), from zero flags and counts: its flags, counts
+    and children equal to the plain step's on the card, its three launches
+    timed by CUDA events beside their byte bound, and the whole step (the
+    count's read included) and the plain step timed on the host's clock,
+    each through a synchronise."""
+    import torch
+
+    from ebwt2indel_torch.models import fm_index as fm_ops
+    from ebwt2indel_torch.models import traverse
+    from ebwt2indel_torch.ops import kernels, node_cuda
+
+    fm = fm_ops.FMIndex.from_file(results["full_path"], device="cuda")
+    chunk = _node_chunk(fm)
+    C, n = chunk.shape[0], fm.n
+    K, k_right = 16, 30  # the pipeline's defaults (utils/config.py)
+
+    def fresh():
+        return (torch.zeros(n, dtype=torch.uint8, device="cuda"),
+                torch.zeros(3, dtype=torch.int64, device="cuda"))
+
+    flags, stats = fresh()
+    got = node_cuda.node_step(fm.blocks, fm.F, chunk, flags, stats, K,
+                              k_right)
+    p_flags, p_stats = fresh()
+    want = traverse._node_body_plain(fm, chunk, p_flags, p_stats, K, k_right)
+    torch.cuda.synchronize()
+    for name, a, b in (("flags", flags, p_flags), ("stats", stats, p_stats),
+                       ("children", got, want)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"node_step != plain on the node chunk: "
+                                 f"{name}")
+    flagged = int(flags.count_nonzero())
+    del p_flags, want
+
+    def wall_ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    # the stores rewrite the same values, the counts grow: both harmless
+    step_ms = wall_ms(lambda: node_cuda.node_step(
+        fm.blocks, fm.F, chunk, flags, stats, K, k_right), 50)
+    plain_ms = wall_ms(lambda: traverse._node_body_plain(
+        fm, chunk, flags, stats, K, k_right), 10)
+    lib = kernels.load()
+    scratch = torch.empty(lib.node_step_scratch_len(C), dtype=torch.int64,
+                          device="cuda")
+    out = torch.empty_like(got)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launches():
+        lib.node_step_count(fm.blocks.data_ptr(), fm.blocks.shape[0],
+                            chunk.data_ptr(), C, flags.data_ptr(), n,
+                            stats.data_ptr(), K, k_right, scratch.data_ptr(),
+                            stream)
+        lib.node_step_write(fm.blocks.data_ptr(), fm.blocks.shape[0],
+                            fm.F.data_ptr(), chunk.data_ptr(), C,
+                            scratch.data_ptr(), out.data_ptr(), stream)
+
+    ms = time_ms(launches, 50)
+    if int(scratch[-1]) != got.shape[0] or not torch.equal(out, got):
+        raise AssertionError("node_step's launches alone wrote other "
+                             "children")
+    rows = int(torch.unique(chunk[:, :6] >> 7).numel())
+    # bytes the step must move: each node row read once, each distinct
+    # block row once, each kept child written once, each flag stored once
+    n_bytes = C * 56 + rows * 64 + got.shape[0] * 56 + flagged
+    # per node: the border values, six rank decodes of about 50 32-bit
+    # operations, the keep test and the scans: about 400
+    n_ops = C * 400
+    bound_s = max(n_bytes / HBM_BYTES_PER_S, n_ops / INT32_OPS_PER_S)
+    log(f"[kernel] node_step on the node chunk of the full index: C={C} "
+        f"nodes over {rows} distinct block rows, {got.shape[0]} children "
+        f"kept, {flagged} flags: launches {ms:.4f} ms, the whole step "
+        f"{step_ms:.4f} ms, plain step {plain_ms:.4f} ms, bound "
+        f"{bound_s * 1e3:.4f} ms ({n_bytes} bytes), equal to plain")
+    return {
+        "name": "node_step", "route": "cuda",
+        "source": "ebwt2indel_torch/csrc/node_step.cu",
+        "replaces": None, "launches": results["launches"]["node_step"],
+        "max_abs_err": 0, "ms": ms, "step_ms": step_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
         "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S
         >= n_ops / INT32_OPS_PER_S else "operations",
         "library_ms": None,
@@ -1931,6 +2073,8 @@ def main() -> int:
         if "launches" in results:
             for name, fn in (("kernel_at_main_shape",
                               phase_kernel_at_main_shape),
+                             ("node_step_at_main_shape",
+                              phase_node_step_at_main_shape),
                              ("next_set_at_main_shape",
                               phase_next_set_at_main_shape),
                              ("emit_single_at_main_shape",

@@ -13,7 +13,11 @@ step on them, and queues the surviving children.
   ``_leaf_body_wide``), then the left extensions of size >= 2.
 * Node step (``_node_body``): border flags (1 = thr_K, 2 = thr_R) and minima
   marks (4) added into a per-position uint8 flag vector, then the Weiner
-  extension by the 4 nucleotides, keeping children with >= 2 children.
+  extension by the 4 nucleotides, keeping children with >= 2 children. A
+  chunk on the card is one CUDA step (``ops/node_cuda.py``,
+  ``csrc/node_step.cu``: three launches and one read of the count of
+  children kept, the step's one wait on the card); a chunk on the CPU runs
+  the plain PyTorch version, ``_node_body_plain``.
 * After both phases: a prefix sum of the deltas gives the leaf-interior
   fills, and thr_K = flag bit 1 | fill_K, thr_R = bit 2 | fill_R.
 
@@ -61,18 +65,19 @@ from functools import partial
 import torch
 
 from ..device import synchronize
-from ..ops import bits, rank, scan
+from ..ops import bits, node_cuda, rank, scan
 from ..utils.profile import span
 from . import call, cluster
 from . import fm_index as fm_ops
 from .fm_index import FMIndex
 
 CHUNK = 256 * 1024  # rows popped per step (traverse.py:39)
-# The span of a node step's waits on the device: each of its two boolean-
-# mask indexes (the flags' positions, the kept children) copies its count
-# to the host, so the host waits there for all the step's work queued
-# before it. The span holds that index alone; a synchronise of its own
-# before it would add an idle round trip to the card per wait.
+# The span of a node step's wait on the device: on the card the step's one
+# read of the count of children kept (mode 2's node-pair step: each of its
+# two boolean-mask indexes, the flags' positions and the kept children)
+# copies a count to the host, so the host waits there for all the step's
+# work queued before it. The span holds that read alone; a synchronise of
+# its own before it would add an idle round trip to the card per wait.
 WAIT = "node_phase.wait"
 
 # The route switch (the JAX package's _LEAN_N = 2**27, traverse.py:1221, was
@@ -213,7 +218,20 @@ def _node_body(fm: FMIndex, chunk, flags, stats, K: int, k_right: int):
     """Internal-node step: border LCP writes, minima marks, Weiner-link
     extension (update_lcp_threshold include.hpp:826-860; update_lcp_minima
     ebwt2InDel.cpp:357-391; next_nodes dna_bwt.hpp:381-404).
-    chunk: (C, 7)."""
+    chunk: (C, 7). A CUDA chunk launches the node-step kernel (or raises);
+    a CPU chunk runs the plain version."""
+    if chunk.device.type == "cuda":
+        return node_cuda.node_step(fm.blocks, fm.F, chunk, flags, stats, K,
+                                   k_right, wait=partial(span, WAIT))
+    return _node_body_plain(fm, chunk, flags, stats, K, k_right)
+
+
+def _node_body_plain(fm: FMIndex, chunk, flags, stats, K: int,
+                     k_right: int):
+    """The node step in plain PyTorch ops, the kernel's arithmetic: the
+    border values and their add into ``flags``, the counts into
+    ``stats[0:3]``, and the kept children (M, 7) in ``_char_major``'s
+    order."""
     v = _border_values(chunk[:, :6], chunk[:, 6:7], stats, K, k_right)
     # each flagged position is written by exactly one (node, border) over the
     # whole traversal, so the add never collides (traverse.py:432-436)

@@ -1,13 +1,14 @@
 """The shared library of the port's CUDA kernels (``csrc/*.cu``).
 
-Every source under ``csrc/`` is compiled in one ``nvcc`` call for
+Every ``.cu`` source under ``csrc/`` is compiled in one ``nvcc`` call for
 ``sm_90a`` into one shared library with a plain C interface under
-``build/kernels/`` (gitignored) at first use, keyed by a hash of all the
-sources, and loaded with ctypes: a checkout's first run pays one build for
-every kernel. Nothing is built or imported from CUDA when this module is
-imported. The wrappers are ``ops/rank_cuda.py`` (``rank_decode``),
-``ops/scan_cuda.py`` (``next_set``) and ``ops/emit_cuda.py``
-(``emit_single``).
+``build/kernels/`` (gitignored) at first use, keyed by a hash of every file
+under ``csrc/`` (the shared headers too), and loaded with ctypes: a
+checkout's first run pays one build for every kernel. Nothing is built or
+imported from CUDA when this module is imported. The wrappers are
+``ops/rank_cuda.py`` (``rank_decode``), ``ops/scan_cuda.py``
+(``next_set``), ``ops/emit_cuda.py`` (``emit_single``) and
+``ops/node_cuda.py`` (``node_step``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,10 @@ import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
+_CSRC = _PKG / "csrc"
+SOURCES = sorted(_CSRC.glob("*.cu"))
+# what the library's key hashes: the sources and the headers they include
+KEYED = sorted(p for p in _CSRC.iterdir() if p.is_file())
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -35,6 +39,11 @@ SIGNATURES = {
     "next_set_scratch_len": (_I64, [_I64]),
     "emit_single_plan": (ctypes.c_int, [_PTR, _PTR]),
     "emit_single_write": (ctypes.c_int, [_PTR, _PTR, _PTR]),
+    "node_step_scratch_len": (_I64, [_I64]),
+    "node_step_count": (ctypes.c_int, [_PTR, _I64, _PTR, _I64, _PTR, _I64,
+                                       _PTR, _I64, _I64, _PTR, _PTR]),
+    "node_step_write": (ctypes.c_int, [_PTR, _I64, _PTR, _PTR, _I64, _PTR,
+                                       _PTR, _PTR]),
 }
 
 _lock = threading.Lock()
@@ -49,13 +58,19 @@ def _nvcc() -> str:
                        "CUDA toolkit)")
 
 
-def build() -> Path:
-    """Compile the kernel library if these sources have not been built yet;
-    returns its path."""
+def library_path() -> Path:
+    """Where the library of the files under ``csrc/`` as they are now
+    lives: its name holds their hash."""
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in KEYED:
         h.update(src.name.encode() + b"\0" + src.read_bytes())
-    out = BUILD_DIR / f"libebwt2indel_kernels_{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"libebwt2indel_kernels_{h.hexdigest()[:12]}.so"
+
+
+def build() -> Path:
+    """Compile the kernel library if these sources and headers have not
+    been built yet; returns its path."""
+    out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

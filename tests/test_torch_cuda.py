@@ -5,8 +5,10 @@ resumed from its checkpoint against an uninterrupted run, modes 1, 3 and 2
 on a 4-shard mesh held by the card against the CPU's single-device run, a
 mesh run resumed from its checkpoints against an uninterrupted one, an
 index read from its cache against a fresh one, the windowed add into a
-vector past 2^31 elements, and the CUDA next-set kernel against its plain
-version, at the benchmark's size and past 2^31 positions.
+vector past 2^31 elements, the CUDA next-set kernel against its plain
+version, at the benchmark's size and past 2^31 positions, and the CUDA node
+step against its plain version on a real node phase's chunks and past 2^31
+positions, with its launches counted once a step.
 A CUDA kernel has no CPU mode, so without a card these skip. On the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -531,3 +533,168 @@ def test_next_set_past_2_31_on_card():
         assert torch.equal(got[lo:lo + window],
                            P[torch.searchsorted(P, i)]), lo
     assert got[-1].item() == n and got[big].item() == big
+
+
+# the pipeline's default -k and -R (utils/config.py): K != k_right
+NODE_K, NODE_K_RIGHT = 16, 30
+NODE_SIZES = (1, 61, 4097)
+
+
+def _node_step_vs_plain(fm, fm_cpu, chunk, flags, stats, K, k_right):
+    """``node_step`` on the card and ``_node_body_plain`` on the CPU from
+    the same chunk, flags and stats: flags, stats[0:3] and the children
+    equal row for row, one launch counted."""
+    from ebwt2indel_torch.ops import node_cuda
+
+    f_card, s_card = flags.clone(), stats.clone()
+    f_cpu, s_cpu = flags.cpu(), stats.cpu()
+    before = node_cuda.LAUNCHES["node_step"]
+    got = node_cuda.node_step(fm.blocks, fm.F, chunk, f_card, s_card, K,
+                              k_right)
+    torch.cuda.synchronize()
+    assert node_cuda.LAUNCHES["node_step"] == before + 1
+    want = traverse._node_body_plain(fm_cpu, chunk.cpu(), f_cpu, s_cpu, K,
+                                     k_right)
+    assert torch.equal(s_card.cpu(), s_cpu)
+    assert torch.equal(got.cpu(), want), (got.shape, want.shape)
+    assert torch.equal(f_card.cpu(), f_cpu)
+
+
+@pytest.fixture(scope="module")
+def node_index(tmp_path_factory):
+    """A 20.2M-position index (``genhuge``'s recipe at 1 Mbp, 20x) on the
+    card and on the CPU: its node phase holds up to 351,476 nodes, so it
+    pops full chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the node-step kernel runs only on "
+                    "the card")
+    from ebwt2indel_torch.models.fm_index import FMIndex
+
+    path = tmp_path_factory.mktemp("node") / "r.ebwt"
+    genhuge.build(1_000_000, str(path), coverage=20, log=lambda *a: None)
+    pb = FMIndex.pack_file(str(path))
+    return FMIndex.from_packed(pb, "cuda"), FMIndex.from_packed(pb, "cpu")
+
+
+def _node_steps(fm, packed, keep=()):
+    """Run the node phase of a mode-1 traversal on the card through the
+    plain step: the rows of each step, and for each step number in ``keep``
+    the (chunk, flags, stats) it was handed, copied."""
+    sizes, kept = [], {}
+
+    def step(fm_, chunk, flags, stats, K, k_right):
+        if len(sizes) in keep:
+            kept[len(sizes)] = (chunk.clone(), flags.clone(), stats.clone())
+        sizes.append(chunk.shape[0])
+        return traverse._node_body_plain(fm_, chunk, flags, stats, K,
+                                         k_right)
+
+    real = traverse._node_body
+    traverse._node_body = step
+    try:
+        traverse.navigate_one_bwt(fm, NODE_K, NODE_K_RIGHT, packed=packed)
+    finally:
+        traverse._node_body = real
+    return sizes, kept
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_node_step_matches_plain_on_real_chunks_on_card(node_index, packed):
+    """The first full chunk and a random mid-phase chunk of a real node
+    phase, on the route's flags: the kernel equals the plain version row for
+    row at ``CHUNK`` rows and at 1, 61 and 4,097, with K != k_right and with
+    the two swapped."""
+    fm, fm_cpu = node_index
+    sizes, _ = _node_steps(fm, packed)
+    full = sizes.index(traverse.CHUNK)
+    mids = [k for k, c in enumerate(sizes)
+            if k > full and c > max(NODE_SIZES)]
+    mid = mids[np.random.default_rng(0x40DE).integers(len(mids))]
+    _, kept = _node_steps(fm, packed, keep=(full, mid))
+    for chunk, flags, stats in kept.values():
+        for rows in (chunk.shape[0],) + NODE_SIZES:
+            part = chunk[:rows].contiguous()
+            for K, k_right in ((NODE_K, NODE_K_RIGHT),
+                               (NODE_K_RIGHT, NODE_K)):
+                _node_step_vs_plain(fm, fm_cpu, part, flags, stats, K,
+                                    k_right)
+
+
+def test_node_step_launches_once_a_step_on_card(tmp_path, rng):
+    """``LAUNCHES["node_step"]`` counts the node steps of modes 1 and 3 and
+    stays 0 in mode 2, whose node-pair step is plain PyTorch."""
+    _needs_cuda()
+    from ebwt2indel_torch.ops import node_cuda
+
+    reads1, reads2 = _pair_reads(rng)
+    (tmp_path / "r.ebwt").write_text(ebwt.ebwt_of_reads(reads1 + reads2))
+    bwt, da = ebwt.ebwt_and_da_of_two(reads1, reads2)
+    (tmp_path / "m.ebwt").write_text(bwt)
+    (tmp_path / "m.da").write_text(da)
+    (tmp_path / "a.ebwt").write_text(ebwt.ebwt_of_reads(reads1))
+    (tmp_path / "b.ebwt").write_text(ebwt.ebwt_of_reads(reads2))
+    out = str(tmp_path / "o.snp")
+    runs = {
+        1: (pipeline.run_one_dataset,
+            Config(input1=str(tmp_path / "r.ebwt"), output=out)),
+        3: (pipeline.run_two_datasets_da,
+            Config(input1=str(tmp_path / "m.ebwt"),
+                   input_da=str(tmp_path / "m.da"), output=out)),
+        2: (pipeline.run_two_datasets,
+            Config(input1=str(tmp_path / "a.ebwt"),
+                   input2=str(tmp_path / "b.ebwt"), output=out)),
+    }
+    real = traverse._node_body
+    for mode, (run, cfg) in runs.items():
+        steps = [0]
+
+        def counted(*a):
+            steps[0] += 1
+            return real(*a)
+
+        traverse._node_body = counted
+        node_cuda.reset_launches()
+        try:
+            run(cfg, log=lambda *a, **k: None, device="cuda")
+        finally:
+            traverse._node_body = real
+        assert node_cuda.LAUNCHES["node_step"] == steps[0], mode
+        assert (steps[0] > 0) == (mode != 2), (mode, steps[0])
+
+
+def test_node_step_past_2_31_on_card():
+    """Nodes whose boundaries straddle 2^31 in an index of 2^31 + 2^20
+    positions (random block rows, 1 GB; flags 2 GB): the kernel's flags,
+    counts and children equal the plain version's on the card, which adds
+    into the flags window by window."""
+    _needs_cuda()
+    import types
+
+    from ebwt2indel_torch.ops import node_cuda
+
+    n = 2**31 + 2**20
+    gen = torch.Generator(device="cuda").manual_seed(0x231)
+    blocks = torch.randint(-2**31, 2**31, (n // 128 + 1, 16),
+                           dtype=torch.int32, generator=gen, device="cuda")
+    F = torch.tensor([0, n // 4, n // 2, 3 * n // 4], device="cuda")
+    fm = types.SimpleNamespace(blocks=blocks, F=F)
+    rng = np.random.default_rng(0x231)
+    C, W = 4097, 64
+    base = 2**31 - (C // 2) * W + W * np.arange(C)
+    offs = np.sort(rng.integers(0, W, (C, 6)), axis=1)
+    chunk = np.concatenate([base[:, None] + offs,
+                            rng.integers(0, 40, (C, 1))], axis=1)
+    chunk = torch.from_numpy(chunk).cuda()
+    f_card = torch.zeros(n, dtype=torch.uint8, device="cuda")
+    f_plain = torch.zeros_like(f_card)
+    s_card = torch.zeros(3, dtype=torch.int64, device="cuda")
+    s_plain = torch.zeros_like(s_card)
+    got = node_cuda.node_step(blocks, F, chunk, f_card, s_card, NODE_K,
+                              NODE_K_RIGHT)
+    want = traverse._node_body_plain(fm, chunk, f_plain, s_plain, NODE_K,
+                                     NODE_K_RIGHT)
+    torch.cuda.synchronize()
+    assert torch.equal(s_card, s_plain) and int(s_card[0]) == C
+    assert torch.equal(got, want)
+    assert int(f_card[2**31:].count_nonzero()) > 0
+    assert torch.equal(f_card, f_plain)
